@@ -1,0 +1,267 @@
+"""Network building blocks, eval only.
+
+Counterparts of `streammos_tpu/nn/blocks.py`. Dense grids are NCHW inside
+the modules; point tensors are (..., N, C), or (..., N, fold*C) with the TTA
+variants folded v-major on channels. Parameters and buffers carry the names
+of the reference torch `AttNet` state_dict (the keys
+`streammos_tpu_torch/weights.py:build_mapping` emits), and stay float32;
+each module casts its weights to the activation dtype, so a bfloat16 input
+runs in bfloat16 as the JAX modules do.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from streammos_tpu_torch.ops.fused_header import fused_header_tta
+from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
+
+BN_EPS = 1e-5
+
+
+class BN(nn.BatchNorm2d):
+    """Eval BatchNorm as its per-channel affine, scale = weight *
+    rsqrt(running_var + eps), shift = bias - running_mean * scale, computed
+    in float32 and applied in the activation dtype.
+
+    fold == 0: NCHW input, channels on dim 1. fold >= 1: channels last, as
+    `fold` v-major blocks that share the (C,) statistics (the folded TTA
+    point layout)."""
+
+    def __init__(self, num_features: int, fold: int = 0):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+        self.fold = fold
+
+    def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        return scale, self.bias.float() - self.running_mean.float() * scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, shift = (a.to(x.dtype) for a in self.eval_affine())
+        if self.fold:
+            return torch.addcmul(shift.repeat(self.fold), x, scale.repeat(self.fold))
+        return torch.addcmul(shift[:, None, None], x, scale[:, None, None])
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose weights follow the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose weights follow the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class PointConv(nn.Module):
+    """The reference's 1x1 Conv2d over points, weight (cout, cin, 1, 1),
+    applied to (..., N, fold*cin) with the shared weight per v-major block.
+    Takes a list of inputs: per variant, their channel concat (in list
+    order) is the conv's input, as in the reference CatFusion."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False, fold: int = 1):
+        super().__init__()
+        self.fold = fold
+        self.weight = nn.Parameter(torch.empty(cout, cin, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, xs) -> torch.Tensor:
+        if isinstance(xs, torch.Tensor):
+            xs = [xs]
+        dt = xs[0].dtype
+        lead = xs[0].shape[:-1]
+        parts = [x.reshape(*lead, self.fold, x.shape[-1] // self.fold) for x in xs]
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.linear(x, self.weight[:, :, 0, 0].to(dt), bias)
+        return y.reshape(*lead, -1)
+
+
+def maxpool3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """3x3 max-pool, padding 1 with -inf, on NCHW."""
+    return F.max_pool2d(x, 3, stride=stride, padding=1)
+
+
+class DownSample2D(nn.Module):
+    """3x3 conv + BN in parallel with 1x1 conv + BN + 3x3 max-pool, sum,
+    ReLU. `forward` takes NCHW; `forward_tta_fused` takes the phase-outer
+    scatter output and runs the fused TTA header."""
+
+    def __init__(self, in_planes: int, out_planes: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv_branch = nn.Sequential(
+            Conv2d(in_planes, out_planes, 3, stride, 1, bias=False), BN(out_planes))
+        self.pool_branch = nn.Sequential(
+            Conv2d(in_planes, out_planes, 1, bias=False), BN(out_planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv_b = self.conv_branch(x)
+        pool_b = maxpool3x3(self.pool_branch(x), self.stride)
+        return torch.relu(conv_b + pool_b)
+
+    def forward_tta_fused(self, g_phase: torch.Tensor, T: int) -> torch.Tensor:
+        """(Bt*T, 4, Hh+2, Wh, V*C) phase-outer, canonical -> (V*Bt, Cout,
+        Hh, Wh): each variant's output in its own orientation, variants on
+        the batch axis in variant order."""
+        dt = g_phase.dtype
+        k3 = self.conv_branch[0].weight.to(dt).permute(2, 3, 1, 0)  # HWIO
+        k1 = self.pool_branch[0].weight.to(dt).permute(2, 3, 1, 0)
+        y = fused_header_tta(g_phase, k3, k1, self.conv_branch[1].eval_affine(),
+                             self.pool_branch[1].eval_affine(), T)
+        y = torch.stack([orient_grid(y[v], v, "bev", (1, 2))
+                         for v in range(V_TTA)])
+        V, Bt, Hh, Wh, C = y.shape
+        return y.reshape(V * Bt, Hh, Wh, C).permute(0, 3, 1, 2)
+
+
+class ChannelAtt(nn.Module):
+    """SE channel attention: mean over H, W (in float32), 1x1 conv, ReLU,
+    1x1 conv, sigmoid, scale."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        self.cnet = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1),
+            Conv2d(channels, channels // reduction, 1),
+            nn.ReLU(),
+            Conv2d(channels // reduction, channels, 1),
+            nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ca = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        ca = torch.sigmoid(self.cnet[3](torch.relu(self.cnet[1](ca))))
+        return x * ca
+
+
+class BasicBlock(nn.Module):
+    """Residual 3x3-3x3 block, optional channel attention before the
+    residual add."""
+
+    def __init__(self, planes: int, use_att: bool = True):
+        super().__init__()
+        self.layer = nn.Sequential(
+            Conv2d(planes, planes, 3, 1, 1, bias=False), BN(planes), nn.ReLU(),
+            Conv2d(planes, planes, 3, 1, 1, bias=False), BN(planes))
+        self.channel_att = ChannelAtt(planes) if use_att else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.layer(x)
+        if self.channel_att is not None:
+            out = self.channel_att(out)
+        return torch.relu(out + x)
+
+
+class UnbalanceBasicBlock(nn.Module):
+    """Parallel (k0 x k1) and (k1 x k0) conv + BN + ReLU, concat, 3x3 conv +
+    BN, residual ReLU."""
+
+    def __init__(self, planes: int, kernel_size: Tuple[int, int],
+                 padding: Tuple[int, int]):
+        super().__init__()
+        k0, k1 = kernel_size
+        p0, p1 = padding
+        self.layer7x3 = nn.Sequential(
+            Conv2d(planes, planes, (k0, k1), padding=(p0, p1), bias=False),
+            BN(planes), nn.ReLU())
+        self.layer3x7 = nn.Sequential(
+            Conv2d(planes, planes, (k1, k0), padding=(p1, p0), bias=False),
+            BN(planes), nn.ReLU())
+        self.layer3x3 = nn.Sequential(
+            Conv2d(2 * planes, planes, 3, padding=1, bias=False), BN(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.cat([self.layer7x3(x), self.layer3x7(x)], dim=1)
+        return torch.relu(self.layer3x3(out) + x)
+
+
+class BasicConv2d(nn.Module):
+    """conv + BN + LeakyReLU(0.01)."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel_size: int = 3,
+                 padding: int = 1):
+        super().__init__()
+        self.conv = Conv2d(in_planes, out_planes, kernel_size, padding=padding,
+                           bias=False)
+        self.bn = BN(out_planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.bn(self.conv(x)), 0.01)
+
+
+class PointNet(nn.Module):
+    """Per-point [BN,] 1x1 conv, BN [, ReLU] over (..., N, fold*C)."""
+
+    def __init__(self, cin: int, cout: int, pre_bn: bool = False,
+                 post_act: bool = True, fold: int = 1):
+        super().__init__()
+        layers = [BN(cin, fold)] if pre_bn else []
+        layers += [PointConv(cin, cout, fold=fold), BN(cout, fold)]
+        if post_act:
+            layers.append(nn.ReLU())
+        self.layer = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class PointNetStacker(nn.Module):
+    """Stacked per-point MLP."""
+
+    def __init__(self, cin: int, cout: int, pre_bn: bool = False,
+                 post_act: bool = True, stack_num: int = 1, fold: int = 1):
+        super().__init__()
+        if stack_num == 1:
+            nets = [PointNet(cin, cout, pre_bn, post_act, fold)]
+        else:
+            nets = [PointNet(cin, cout, pre_bn, True, fold)]
+            nets += [PointNet(cout, cout, False, True, fold)
+                     for _ in range(1, stack_num - 1)]
+            nets.append(PointNet(cout, cout, False, post_act, fold))
+        self.layer = nn.Sequential(*nets)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class CatFusion(nn.Module):
+    """Point-level fusion: per variant, concat the sources, then two 1x1
+    conv + BN + ReLU stages (sum -> sum/2 -> out). Dropout is the identity
+    in eval."""
+
+    def __init__(self, in_channels: Sequence[int], out_channel: int,
+                 fold: int = 1):
+        super().__init__()
+        s = sum(in_channels)
+        self.merge_layer = nn.Sequential(
+            PointConv(s, s // 2, fold=fold), BN(s // 2, fold), nn.ReLU(),
+            PointConv(s // 2, out_channel, fold=fold), BN(out_channel, fold),
+            nn.ReLU())
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        dt = xs[0].dtype
+        x = self.merge_layer[0]([v.to(dt) for v in xs])
+        for layer in self.merge_layer[1:]:
+            x = layer(x)
+        return x
+
+
+class PredBranch(nn.Module):
+    """1x1 classifier head with bias (dropout is the identity in eval)."""
+
+    def __init__(self, cin: int, cout: int, fold: int = 1):
+        super().__init__()
+        self.pred_layer = nn.Sequential(PointConv(cin, cout, bias=True, fold=fold))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pred_layer(x)

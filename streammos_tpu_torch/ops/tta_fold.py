@@ -1,0 +1,173 @@
+"""Folded test-time augmentation: the four (x, y) sign-flip variants share
+one scatter / gather index structure and ride the channel axis.
+
+Counterpart of `streammos_tpu/ops/tta_fold.py` (plain XLA there). The flips
+are bijections of the grid index space: a BEV flip reverses an axis; on the
+range view a flip of x reverses the phi column, a flip of y reverses and
+rolls it by W/2, a flip of both rolls it by W/2; theta rows never move. So
+the port scatters once with the variant-0 cell ids and the variants'
+features side by side on channels, then orients each variant's grid; the
+gather aligns each variant's grid back to canonical coordinates and reads
+all variants' bilinear taps in one row per tap.
+
+Variant order: (+x,+y), (+x,-y), (-x,+y), (-x,-y).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
+
+V_TTA = 4
+
+# per-variant (axis-1, axis-2) transforms in variant order; BEV axes are
+# (x_cell, y_cell), RV axes (theta_row, phi_col)
+_BEV_TRANSFORMS = (("id", "id"), ("id", "rev"), ("rev", "id"), ("rev", "rev"))
+_RV_TRANSFORMS = (("id", "id"), ("id", "revroll"), ("id", "rev"), ("id", "roll"))
+
+
+def _transforms(kind: str):
+    if kind == "bev":
+        return _BEV_TRANSFORMS
+    if kind == "rv":
+        return _RV_TRANSFORMS
+    raise ValueError(f"unknown grid kind {kind!r}")
+
+
+def _orient_axis(grid: torch.Tensor, tr: str, axis: int) -> torch.Tensor:
+    """out[..., i, ...] = grid[..., T(i), ...] for the involution T:
+    rev i -> size-1-i, roll i -> (i + size/2) % size,
+    revroll i -> (size/2 - 1 - i) % size."""
+    size = grid.shape[axis]
+    if tr == "id":
+        return grid
+    if tr == "rev":
+        return torch.flip(grid, (axis,))
+    if tr == "roll":
+        return torch.roll(grid, size // 2, dims=axis)
+    if tr == "revroll":
+        return torch.roll(torch.flip(grid, (axis,)), size // 2, dims=axis)
+    raise ValueError(tr)
+
+
+def orient_grid(grid: torch.Tensor, v: int, kind: str,
+                axes: Tuple[int, int]) -> torch.Tensor:
+    """Map a canonical-cell grid to variant v's orientation (or back: the
+    permutations are involutions)."""
+    for axis, tr in zip(axes, _transforms(kind)[v]):
+        grid = _orient_axis(grid, tr, axis)
+    return grid
+
+
+def voxel_max_pool_tta(feat: torch.Tensor, coords0: torch.Tensor,
+                       out_size: Tuple[int, int],
+                       scale_rate: Sequence[float], kind: str,
+                       nonneg: bool = False) -> torch.Tensor:
+    """Scatter all variants in one max-pool.
+
+    feat (B, N, V*C) variants folded as v-major channel blocks; coords0
+    (B, N, >=2) variant-0 fractional coords. Returns (V, B, H, W, C), each
+    variant's grid in its own orientation."""
+    B, N, VC = feat.shape
+    if VC % V_TTA:
+        raise ValueError(f"folded width {VC} is not a multiple of {V_TTA}")
+    C = VC // V_TTA
+    H, W = out_size
+    grid = voxel_max_pool(feat, coords0[..., :2], out_size, scale_rate, nonneg)
+    grid = grid.reshape(B, H, W, V_TTA, C)
+    return torch.stack([orient_grid(grid[..., v, :], v, kind, (1, 2))
+                        for v in range(V_TTA)])
+
+
+def _ext_table(grid: torch.Tensor, tr: str, axis: int) -> torch.Tensor:
+    """Extended tap table along `axis` (size + 2 slots): slot j holds the
+    variant's value at canonical position (j - 1) + s, where s = -1 for the
+    reversed transforms and 0 otherwise; out-of-range slots are zero."""
+    size = grid.shape[axis]
+    zshape = list(grid.shape)
+    zshape[axis] = 1
+    zero = grid.new_zeros(zshape)
+    if tr == "id":
+        return torch.cat([zero, grid, zero], dim=axis)
+    if tr == "rev":
+        return torch.cat([zero, zero, torch.flip(grid, (axis,))], dim=axis)
+    if tr == "roll":
+        r = torch.roll(grid, 1 - size // 2, dims=axis)
+        return torch.cat([r, r.narrow(axis, 0, 2)], dim=axis)
+    if tr == "revroll":
+        r = torch.roll(torch.flip(grid, (axis,)), 2 - size // 2, dims=axis)
+        return torch.cat([r, r.narrow(axis, 0, 2)], dim=axis)
+    raise ValueError(tr)
+
+
+def _axis_weights(transform: str, size: int, p: torch.Tensor, dtype):
+    """The two bilinear tap weights of one axis of one variant at canonical
+    pixel coord p, with the zero-padding validity of the variant's true tap
+    folded in, including the wrap seam of rolled axes: the taps sit at
+    offsets (0, 1) for id/roll and (-1, 0) for rev/revroll."""
+    x0 = torch.floor(p)
+    f = (p - x0).to(dtype)
+    x0i = x0.to(torch.int64)
+    inb = (x0i >= 0) & (x0i <= size - 1)
+    if transform == "id":
+        return ((1 - f) * inb.to(dtype),
+                f * ((x0i >= -1) & (x0i <= size - 2)).to(dtype))
+    if transform == "rev":
+        return ((1 - f) * ((x0i >= 1) & (x0i <= size)).to(dtype),
+                f * inb.to(dtype))
+    if transform == "revroll":
+        return ((1 - f) * (inb & (x0i != size // 2)).to(dtype),
+                f * inb.to(dtype))
+    if transform == "roll":
+        return ((1 - f) * inb.to(dtype),
+                f * (inb & (x0i != size // 2 - 1)).to(dtype))
+    raise ValueError(transform)
+
+
+def grid_to_point_tta(grids: torch.Tensor, coords0: torch.Tensor,
+                      scale_rate: Sequence[float], kind: str) -> torch.Tensor:
+    """Bilinear-sample all variants with one row gather per tap.
+
+    grids (V, B, H, W, C) per-variant grids in their own orientations;
+    coords0 (B, N, 2) variant-0 coords in unscaled grid units. Returns
+    (B, N, V*C), the per-variant samples folded as v-major channel blocks."""
+    V, B, H, W, C = grids.shape
+    if V != V_TTA:
+        raise ValueError(f"expected {V_TTA} variants, got {V}")
+    dt = grids.dtype
+    trs = _transforms(kind)
+    py = coords0[..., 0].to(torch.float32) * float(np.float32(scale_rate[0]))
+    px = coords0[..., 1].to(torch.float32) * float(np.float32(scale_rate[1]))
+
+    # align every variant to canonical coordinates over the extended window,
+    # pre-shifted by its tap base, so all variants' taps share slots
+    aligned = [_ext_table(_ext_table(grids[v], trs[v][0], 1), trs[v][1], 2)
+               for v in range(V)]
+    Hp, Wp = H + 2, W + 2
+    table = torch.stack(aligned, dim=-2).reshape(B * Hp * Wp, V * C)
+
+    y0 = torch.floor(py).to(torch.int64)
+    x0 = torch.floor(px).to(torch.int64)
+    yc = y0.clamp(-1, H) + 1
+    xc = x0.clamp(-1, W) + 1
+    base = (yc * Wp + xc
+            + (torch.arange(B, device=grids.device) * Hp * Wp)[:, None])
+    last = B * Hp * Wp - 1
+    # a point far outside the grid: the clamp moved its window, kill it
+    guard = ((yc - 1 == y0) & (xc - 1 == x0)).to(dt)
+
+    wy = [_axis_weights(trs[v][0], H, py, dt) for v in range(V)]
+    wx = [_axis_weights(trs[v][1], W, px, dt) for v in range(V)]
+    out = None
+    for dy in range(2):
+        for dx in range(2):
+            idx = (base + (dy * Wp + dx)).clamp(max=last)
+            t = table.index_select(0, idx.reshape(-1)).reshape(B, -1, V, C)
+            wk = torch.stack([wy[v][dy] * wx[v][dx] for v in range(V)],
+                             dim=-1)  # (B, N, V)
+            term = t * wk[..., None]
+            out = term if out is None else out + term
+    return (out * guard[..., None, None]).reshape(B, -1, V * C)

@@ -1,0 +1,39 @@
+"""No module of the port imports jax or the JAX package: import every
+module of `streammos_tpu_torch` (and `chip_smoke.py`) in a fresh
+interpreter and inspect `sys.modules`."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
+               for m in sys.modules), "jax was imported before the probe"
+import streammos_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(streammos_tpu_torch.__path__,
+                                               "streammos_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "streammos_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    import json
+
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["bad"] == []
+    for name in ("config", "geometry", "weights", "serve", "build",
+                 "ops.fused_header", "ops.voxel_pool", "nn.encoder",
+                 "models.stream_mos"):
+        assert f"streammos_tpu_torch.{name}" in report["modules"]
