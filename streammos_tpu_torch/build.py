@@ -24,6 +24,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 # kernel name -> source, relative to the package
 SOURCES: Dict[str, str] = {
     "fused_header": "csrc/fused_header.cu",
+    "sorted_scatter": "csrc/sorted_scatter.cu",
+    "scatter_copies": "csrc/scatter_copies.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

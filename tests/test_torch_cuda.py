@@ -6,15 +6,20 @@ neither is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: float32 rtol = atol = 1e-4 (TF32 off; sums in another order);
-bfloat16 rtol = atol = 1e-2 against the plain version run in float32 on the
-same bfloat16 inputs (the kernel rounds its output to bfloat16).
+Tolerances: fused header float32 rtol = atol = 1e-4 (TF32 off; sums in
+another order); bfloat16 rtol = atol = 1e-2 against the plain version run in
+float32 on the same bfloat16 inputs (the kernel rounds its output to
+bfloat16). The scatter kernels are bit-exact against their plain versions
+and `impl="auto"`, forward and backward: a max does not depend on order.
 """
 import numpy as np
 import pytest
 import torch
 
 from streammos_tpu_torch.ops import fused_header as t_fh
+from streammos_tpu_torch.ops import pallas_scatter as t_sorted
+from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
+from streammos_tpu_torch.ops import voxel_pool as t_vp
 
 
 def _header_inputs(rng, T=3, C=8, Cout=16, Bt=1, Hh=16, Wh=128):
@@ -96,3 +101,101 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda):
     for (want_s, want_bf), (got_s, got_bf) in zip(outs["cpu"], outs["cuda"]):
         torch.testing.assert_close(got_s, want_s, rtol=2e-3, atol=2e-3)
         torch.testing.assert_close(got_bf, want_bf, rtol=2e-3, atol=2e-3)
+
+
+def _sorted_rows(rng, R, C, n_cells, dev, dtype):
+    """Rows sorted by id with negative values, sentinel ids, one crowded
+    cell and empty cells."""
+    feat = rng.normal(size=(R, C)).astype(np.float32)
+    ids = rng.integers(0, n_cells + 1, R).astype(np.int32)
+    ids[: R // 10] = n_cells
+    ids[R // 10: R // 4] = n_cells // 2
+    ids[ids == n_cells - 1] = n_cells
+    feat[ids == 0] = -np.abs(feat[ids == 0])
+    order = np.argsort(ids, kind="stable")
+    return (torch.from_numpy(feat[order]).to(dev, dtype),
+            torch.from_numpy(ids[order]).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_cells,C", [(1000, 8), (37, 5), (4100, 256),
+                                       (17, 128)])
+def test_sorted_scatter_kernel_matches_plain(cuda, dtype, n_cells, C):
+    """Partial last tiles (no cell count here is a multiple of the tile),
+    the 16-byte and the one-channel paths."""
+    feats, ids = _sorted_rows(np.random.default_rng(n_cells), 5000, C,
+                              n_cells, cuda, getattr(torch, dtype))
+    before = t_sorted.sorted_scatter_max.launches
+    got = t_sorted.sorted_scatter_max(feats, ids, n_cells)
+    torch.cuda.synchronize()
+    assert t_sorted.sorted_scatter_max.launches == before + 1
+    want = t_sorted.sorted_scatter_max_reference(feats, ids, n_cells)
+    assert (want < 0).any()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,N,cells,C", [(1, 3000, 640, 128),
+                                         (2, 2048, 1000, 256)])
+def test_copy_scatter_kernel_matches_plain(cuda, dtype, B, N, cells, C):
+    """Non-negative rows, ids out of range of either sign, cells not a
+    multiple of 8, two batches."""
+    rng = np.random.default_rng(cells)
+    feat = torch.from_numpy(np.maximum(rng.normal(size=(B, N, C)), 0).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+    ids = torch.from_numpy(rng.integers(-cells, 2 * cells, (B, N)).astype(
+        np.int32)).to(cuda)
+    before = t_vmem.scatter_max_vmem.launches
+    got = t_vmem.scatter_max_vmem(feat, ids, cells)
+    torch.cuda.synchronize()
+    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert torch.equal(got, t_vmem.scatter_max_vmem_reference(feat, ids, cells))
+
+
+@pytest.mark.cuda
+def test_scatter_kernels_reject_what_they_cannot_take(cuda):
+    feats, ids = _sorted_rows(np.random.default_rng(0), 100, 128, 64, cuda,
+                              torch.float32)
+    with pytest.raises(TypeError):
+        t_sorted.sorted_scatter_max(feats.half(), ids, 64)
+    with pytest.raises(TypeError):
+        t_sorted.sorted_scatter_max(feats, ids.long(), 64)
+    with pytest.raises(ValueError):
+        t_sorted.sorted_scatter_max(feats[:, ::2], ids, 64)
+    feat, vids = feats[None], ids[None]
+    with pytest.raises(TypeError):
+        t_vmem.scatter_max_vmem(feat.half(), vids, 64)
+    with pytest.raises(TypeError):
+        t_vmem.scatter_max_vmem(feat, vids.long(), 64)
+    with pytest.raises(ValueError):  # C % 128 != 0
+        t_vmem.scatter_max_vmem(feat[..., :96].contiguous(), vids, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [(False, 0), (True, 1), ("outer", 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_voxel_max_pool_kernels_match_auto(cuda, layout, dtype):
+    """Through the entry point, forward and gradients: "pallas" and "vmem"
+    equal "auto" exactly; values from a few levels, so cells hold ties and
+    zeros, each of which gets the full gradient."""
+    phase_split, row_pad = layout
+    rng = np.random.default_rng(1)
+    B, N, C, size = 2, 4000, 128, (30, 26)
+    feat = torch.from_numpy(rng.integers(0, 4, (B, N, C)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype))
+    inds = torch.from_numpy(rng.uniform(-2, 64, (B, N, 2)).astype(
+        np.float32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32))
+    results = {}
+    for impl in ("auto", "pallas", "vmem"):
+        x = feat.clone().requires_grad_()
+        out = t_vp.voxel_max_pool(x, inds, size, (0.5, 0.5), True, phase_split,
+                                  row_pad, impl=impl)
+        g = cot.to(cuda, out.dtype).reshape(-1)[: out.numel()].reshape(out.shape)
+        (out * g).sum().backward()
+        results[impl] = (out.detach(), x.grad)
+    for impl in ("pallas", "vmem"):
+        assert torch.equal(results[impl][0], results["auto"][0]), impl
+        assert torch.equal(results[impl][1], results["auto"][1]), impl

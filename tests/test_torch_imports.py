@@ -34,6 +34,7 @@ def test_port_imports_no_jax():
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("config", "geometry", "weights", "serve", "build",
-                 "ops.fused_header", "ops.voxel_pool", "nn.encoder",
+                 "ops.fused_header", "ops.voxel_pool", "ops.pallas_scatter",
+                 "ops.pallas_scatter_vmem", "nn.encoder",
                  "models.stream_mos"):
         assert f"streammos_tpu_torch.{name}" in report["modules"]
