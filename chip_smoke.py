@@ -8,9 +8,12 @@ result line):
   1. device: the card's name and power limit;
   2. build every CUDA kernel of the port from the sources in this checkout;
   3. the fused TTA header against its plain PyTorch version on the card: at
-     the unit-test shape in float32 and at the production shape in bfloat16
-     (against the plain version run in float32 on the same bfloat16
-     inputs), and both timed at the production shape;
+     the unit-test shape in float32 (the CUDA-core kernel), and in bfloat16
+     (the tensor-core kernel, against the plain version run in float32 on
+     the same bfloat16 inputs) at Bt=2 on a ragged grid, where NaN in the
+     padding rows must leave the output unchanged, and at the production
+     shape; kernel (weight packing included) and plain version timed at
+     the production shape, with the achieved GB/s and share of the bound;
   4. the scatter kernels, at the five scatter sites of one main-path frame
      of StreamMOS_seg (coordinates from `featurize(tta_expand_folded(...))`
      of a range-skewed frame, non-negative bfloat16 features from the seed):
@@ -97,11 +100,29 @@ def header_inputs(gen, dev, Bt, T, C, Cout, Hh, Wh, dtype):
             tuple(a.to(dev) for a in pa))
 
 
+def bf16_check(fh, got, g, k3, k1, ca, pa, T, what):
+    """The bf16 kernel's output against the float32 plain version on the
+    same bf16 inputs: |got - want| <= 1e-2 + 1e-2 |want| (the kernel rounds
+    its output to bf16). Returns the max abs error."""
+    want = fh.fused_header_reference(g.float(), k3.float(), k1.float(),
+                                     ca, pa, T)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    excess = float((diff - (1e-2 + 1e-2 * want.abs())).max())
+    print(f"fused_header bf16 {what} {tuple(g.shape)}: max_abs_err {err:.3e} "
+          f"vs the float32 plain version on the same inputs (tolerance "
+          f"1e-2 + 1e-2*|ref|: bf16 output rounding)", flush=True)
+    check(excess <= 0, f"fused header bf16 {what} err {err}")
+    return err
+
+
 def header_phase(dev, name, cfg):
     from streammos_tpu_torch.ops import fused_header as fh
 
     gen = torch.Generator().manual_seed(SEED)
-    # unit-test shape (tests/test_fused_header.py), float32, Bt = 1 and 2
+    # unit-test shape (tests/test_fused_header.py), float32 (the CUDA-core
+    # kernel), Bt = 1 and 2
     for Bt in (1, 2):
         g, k3, k1, ca, pa = header_inputs(gen, dev, Bt, 3, 8, 16, 16, 128,
                                           torch.float32)
@@ -113,26 +134,31 @@ def header_phase(dev, name, cfg):
               f"(tolerance 1e-4)", flush=True)
         check(err <= 1e-4, f"fused header f32 Bt={Bt} err {err}")
 
-    # production shape, from the config the main path runs
     m = cfg.model
     T, C, Cout = m.seq_num, m.context_layers[0], m.context_layers[1]
+    # bf16 (the tensor-core kernel), Bt = 2 on a grid that is no multiple
+    # of the 8 x 16 tile; then NaN in the padding rows must change nothing
+    g, k3, k1, ca, pa = header_inputs(gen, dev, 2, T, C, Cout, 37, 45,
+                                      torch.bfloat16)
+    got = fh.fused_header_tta(g, k3, k1, ca, pa, T)
+    err = bf16_check(fh, got, g, k3, k1, ca, pa, T, "ragged Bt=2")
+    g[:, :, 0] = float("nan")
+    g[:, :, -1] = float("nan")
+    check(torch.equal(fh.fused_header_tta(g, k3, k1, ca, pa, T), got),
+          "fused header bf16 reads the padding rows")
+    print("fused_header bf16 ragged Bt=2: NaN padding rows leave the output "
+          "unchanged", flush=True)
+
+    # production shape, from the config the main path runs
     Hh, Wh = m.voxel.bev_wl[0] // 2, m.voxel.bev_wl[1] // 2
     g, k3, k1, ca, pa = header_inputs(gen, dev, 1, T, C, Cout, Hh, Wh,
                                       torch.bfloat16)
     got = fh.fused_header_tta(g, k3, k1, ca, pa, T)
-    want = fh.fused_header_reference(g.float(), k3.float(), k1.float(),
-                                     ca, pa, T)
-    torch.cuda.synchronize()
-    diff = (got.float() - want).abs()
-    err = float(diff.max())
-    excess = float((diff - (1e-2 + 1e-2 * want.abs())).max())
-    print(f"fused_header bf16 production shape {tuple(g.shape)}: max_abs_err "
-          f"{err:.3e} vs the float32 plain version on the same inputs "
-          f"(tolerance 1e-2 + 1e-2*|ref|: bf16 output rounding)", flush=True)
-    check(excess <= 0, f"fused header bf16 err {err}")
-    del want, diff
+    err = max(err, bf16_check(fh, got, g, k3, k1, ca, pa, T,
+                              "production shape"))
 
     kernel_ms = time_ms(lambda: fh.fused_header_tta(g, k3, k1, ca, pa, T), 20)
+    pack_ms = time_ms(lambda: fh.pack_header_weights(k3, k1, T), 20)
     plain_ms = time_ms(lambda: fh.fused_header_reference(g, k3, k1, ca, pa, T),
                        3, warmup=1)
     check("H100" in name and "PCIe" not in name and "NVL" not in name,
@@ -146,9 +172,12 @@ def header_phase(dev, name, cfg):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"fused_header production: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP)", flush=True)
+    gb_per_s = nbytes / kernel_ms / 1e6
+    print(f"fused_header production: kernel {kernel_ms:.4f} ms (of which the "
+          f"weight packing {pack_ms:.4f} ms alone), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP); {gb_per_s:.1f} GB/s, "
+          f"{bound_ms / kernel_ms:.3f} of the bound", flush=True)
     return {
         "name": "fused_header_tta",
         "route": "cuda",
@@ -165,6 +194,9 @@ def header_phase(dev, name, cfg):
         "library_note": ("no single PyTorch call computes the fused header "
                          "(two convolutions, two affines, a max-pool and a "
                          "ReLU over four flipped views)"),
+        "achieved_gb_per_s": gb_per_s,
+        "bound_share": bound_ms / kernel_ms,
+        "pack_ms": pack_ms,
         "shape": list(g.shape),
         "dtype": "bfloat16",
     }

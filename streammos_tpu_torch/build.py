@@ -54,7 +54,8 @@ def library_path(name: str) -> Path:
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The built library of one kernel, compiling it first if it is not
-    built yet (and then printing ptxas's register and spill counts).
+    built yet (and then printing ptxas's register and spill counts, each
+    after the kernel they belong to).
     Raises if nvcc fails."""
     path = library_path(name)
     if not path.exists():
@@ -67,7 +68,8 @@ def load_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(f"building kernel {name} failed (nvcc exit "
                                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
         for line in (proc.stdout + proc.stderr).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "spill")):
                 print(f"{name}: {line.strip()}", flush=True)
         os.replace(tmp, path)
     return ctypes.CDLL(str(path))

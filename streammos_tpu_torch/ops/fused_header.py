@@ -2,10 +2,25 @@
 straight from the phase-outer scatter output.
 
 Counterpart of `streammos_tpu/ops/fused_header.py`. `fused_header_tta`
-launches the hand-written CUDA kernel `csrc/fused_header.cu` for CUDA
-tensors (it replaces the TPU kernel `_pair_kernel` there) and runs the plain
-version `fused_header_reference` for CPU tensors. There is no other path: a
-CUDA tensor the kernel cannot take raises.
+launches the hand-written CUDA kernels of `csrc/fused_header.cu` for CUDA
+tensors and runs the plain version `fused_header_reference` for CPU
+tensors. There is no other path: a CUDA tensor the kernels cannot take
+raises. The kernels replace the TPU kernel `_pair_kernel`
+(`streammos_tpu/ops/fused_header.py:198`), one for each dtype:
+
+- bfloat16, the main path: an implicit GEMM on the tensor cores
+  (`mma.sync` m16n8k16, float32 sums in registers), its loads pipelined
+  through a 3-stage `cp.async` ring. It stages only the full-res positions
+  a tile's taps touch, reads G about once across the four variants, and
+  takes its weights packed by `pack_header_weights`. Limits: C % 16 == 0,
+  Cout % 8 == 0, Cout <= 32. Its bound at the production shape
+  (3, 4, 258, 256, 256) bf16 is the 419.6 MB it moves: 0.1252 ms at
+  3.35 TB/s (41.88 GFLOP, under the tensor cores' ridge). The source's
+  header says what the design does about each of the first version's
+  limits (float32 FMAs, no overlap, 159 KB a block, a 720-position halo
+  window, weights re-read).
+- float32, the card's float32 checks: the first version, float32 FMAs on
+  the CUDA cores (TF32 tensor cores would not meet their tolerances).
 
   input   g_phase (Bt*T, 4, Hh+2, Wh, V*C)  phase-outer, canonical
           orientation, one empty half-res row above and below each phase
@@ -27,7 +42,8 @@ from streammos_tpu_torch.build import load_library
 from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
 
 P_PHASE = 4
-MAX_COUT = 32  # the kernel's channel groups: Cout % 8 == 0, Cout <= 32
+MAX_COUT = 32  # both kernels: Cout % 8 == 0, Cout <= 32
+BF16_C_MULTIPLE = 16  # the bf16 kernel: C % 16 == 0
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
@@ -63,6 +79,19 @@ def fused_header_reference(g_phase: torch.Tensor, k3: torch.Tensor,
     return torch.stack(outs).to(g_phase.dtype)
 
 
+def pack_header_weights(k3: torch.Tensor, k1: torch.Tensor,
+                        T: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's B operands, K-contiguous: k3 (3, 3, T*C, Cout) HWIO
+    -> (T, 9, Cout, C) with tap = 3 * row tap + column tap, and k1
+    (1, 1, T*C, Cout) -> (T, Cout, C)."""
+    kh, kw, TC, Cout = k3.shape
+    C = TC // T
+    k3p = k3.reshape(kh, kw, T, C, Cout).permute(2, 0, 1, 4, 3)
+    k1p = k1.reshape(T, C, Cout).permute(0, 2, 1)
+    return (k3p.reshape(T, kh * kw, Cout, C).contiguous(),
+            k1p.contiguous())
+
+
 def _check(g_phase, k3, k1, T) -> Tuple[int, int, int, int, int]:
     if g_phase.dim() != 5 or g_phase.shape[1] != P_PHASE:
         raise ValueError(f"g_phase must be (Bt*T, 4, Hh+2, Wh, V*C), got "
@@ -86,7 +115,8 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
                      k1: torch.Tensor, conv_affine: Affine,
                      pool_affine: Affine, T: int) -> torch.Tensor:
     """All four variants' DownSample2D outputs (V, Bt, Hh, Wh, Cout),
-    canonical-anchored, in g_phase's dtype. CUDA tensors launch the kernel;
+    canonical-anchored, in g_phase's dtype. CUDA tensors launch the kernel
+    of their dtype (bf16: weights packed by `pack_header_weights` first);
     CPU tensors run `fused_header_reference`."""
     Bt, Hh, Wh, C, Cout = _check(g_phase, k3, k1, T)
     if g_phase.device.type == "cpu":
@@ -102,9 +132,21 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
     if Cout % 8 or Cout > MAX_COUT:
         raise ValueError(f"fused header kernel takes Cout % 8 == 0 and "
                          f"Cout <= {MAX_COUT}, got {Cout}")
+    bf16 = g_phase.dtype == torch.bfloat16
+    if bf16 and C % BF16_C_MULTIPLE:
+        raise ValueError(f"bf16 fused header kernel takes C % "
+                         f"{BF16_C_MULTIPLE} == 0, got C={C}")
+    if bf16 and g_phase.data_ptr() % 16:
+        raise ValueError("bf16 fused header kernel takes a 16-byte aligned "
+                         "g_phase")
+    if bf16 and g_phase[0].numel() >= 2 ** 31:
+        raise ValueError("bf16 fused header kernel takes frames of fewer "
+                         "than 2**31 elements (32-bit window offsets)")
     dev = g_phase.device
-    k3 = k3.to(dev, g_phase.dtype).contiguous()
-    k1 = k1.to(dev, g_phase.dtype).contiguous()
+    k3 = k3.to(dev, g_phase.dtype)
+    k1 = k1.to(dev, g_phase.dtype)
+    k3, k1 = (pack_header_weights(k3, k1, T) if bf16
+              else (k3.contiguous(), k1.contiguous()))
     aff = [a.to(dev, torch.float32).contiguous()
            for a in (*conv_affine, *pool_affine)]
     if any(a.shape != (Cout,) for a in aff):
@@ -118,8 +160,7 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(g_phase.data_ptr(), k3.data_ptr(), k1.data_ptr(),
                  *(a.data_ptr() for a in aff), out.data_ptr(),
-                 Bt, T, Hh, Wh, C, Cout,
-                 int(g_phase.dtype == torch.bfloat16), stream)
+                 Bt, T, Hh, Wh, C, Cout, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused header kernel launch failed: CUDA error {err}")
     fused_header_tta.launches += 1

@@ -7,9 +7,9 @@ neither is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances: fused header float32 rtol = atol = 1e-4 (TF32 off; sums in
-another order); bfloat16 rtol = atol = 1e-2 against the plain version run in
-float32 on the same bfloat16 inputs (the kernel rounds its output to
-bfloat16). The scatter kernels are bit-exact against their plain versions
+another order); bfloat16 (the tensor-core kernel) rtol = atol = 1e-2
+against the plain version run in float32 on the same bfloat16 inputs (the
+kernel rounds its output to bfloat16). The scatter kernels are bit-exact against their plain versions
 and `impl="auto"`, forward and backward: a max does not depend on order.
 """
 import numpy as np
@@ -47,16 +47,28 @@ def cuda():
     return torch.device("cuda")
 
 
+def _header_on(dev, dtype, args):
+    g, k3, k1, ca, pa = args
+    g, k3, k1 = (torch.from_numpy(x).to(dev, dtype) for x in (g, k3, k1))
+    return g, k3, k1, *(tuple(torch.from_numpy(a).to(dev) for a in aff)
+                        for aff in (ca, pa))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,shape", [
     ("float32", dict(Bt=1)), ("float32", dict(Bt=2, Hh=9, Wh=20, C=3)),
-    ("bfloat16", dict(C=64, Cout=32, Hh=32, Wh=48))])
+    ("bfloat16", dict(C=64, Cout=32, Hh=32, Wh=48)),
+    # grids that are no multiple of the 8 x 16 tile; chunks of 32 channels
+    # cut short (C = 16, 48); Cout below the 32 the B operand holds
+    ("bfloat16", dict(Bt=2, C=64, Cout=32, Hh=37, Wh=45)),
+    ("bfloat16", dict(Bt=2, C=16, Cout=8, Hh=9, Wh=20)),
+    ("bfloat16", dict(Bt=2, C=48, Cout=24, Hh=13, Wh=33)),
+    # the production shape (StreamMOS_seg's header)
+    ("bfloat16", dict(C=64, Cout=32, Hh=256, Wh=256))])
 def test_cuda_kernel_matches_plain(cuda, dtype, shape):
-    g, k3, k1, ca, pa = _header_inputs(np.random.RandomState(4), **shape)
     dt = getattr(torch, dtype)
-    g, k3, k1 = (torch.from_numpy(x).to(cuda, dt) for x in (g, k3, k1))
-    ca, pa = (tuple(torch.from_numpy(a).to(cuda) for a in aff)
-              for aff in (ca, pa))
+    g, k3, k1, ca, pa = _header_on(
+        cuda, dt, _header_inputs(np.random.RandomState(4), **shape))
     before = t_fh.fused_header_tta.launches
     got = t_fh.fused_header_tta(g, k3, k1, ca, pa, 3)
     torch.cuda.synchronize()
@@ -69,6 +81,22 @@ def test_cuda_kernel_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.cuda
+def test_cuda_bf16_kernel_ignores_the_padding_rows(cuda):
+    """NaN in the padding rows above and below each phase plane: the output
+    is the same as with zero padding, and finite."""
+    args = _header_on(cuda, torch.bfloat16, _header_inputs(
+        np.random.RandomState(8), Bt=2, C=64, Cout=32, Hh=19, Wh=40))
+    want = t_fh.fused_header_tta(*args, 3)
+    g = args[0].clone()
+    g[:, :, 0] = float("nan")
+    g[:, :, -1] = float("nan")
+    got = t_fh.fused_header_tta(g, *args[1:], 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
     g, k3, k1, ca, pa = _header_inputs(np.random.RandomState(5), Cout=12,
                                        Hh=4, Wh=8)
@@ -78,6 +106,18 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
         t_fh.fused_header_tta(*args, *affs, 3)
     with pytest.raises(TypeError):
         t_fh.fused_header_tta(*(a.half() for a in args), *affs, 3)
+    # the bf16 kernel's own limits
+    for shape in (dict(C=8, Cout=16), dict(C=24, Cout=16),  # C % 16 != 0
+                  dict(C=16, Cout=40)):                      # Cout > 32
+        with pytest.raises(ValueError):
+            t_fh.fused_header_tta(*_header_on(cuda, torch.bfloat16, _header_inputs(
+                np.random.RandomState(5), Hh=4, Wh=8, **shape)), 3)
+    g, k3, k1, ca, pa = _header_on(cuda, torch.bfloat16, _header_inputs(
+        np.random.RandomState(5), C=16, Cout=16, Hh=4, Wh=8))
+    shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)[1:]
+    shifted = shifted.view(g.shape).copy_(g)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError):
+        t_fh.fused_header_tta(shifted, k3, k1, ca, pa, 3)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """The fused TTA header: the port's plain version against the JAX plain
-version and the JAX Pallas kernel in interpret mode, the wrapper's
-dispatch and shape checks. The CUDA kernel's own test, which needs a card,
-is in `test_torch_cuda.py`.
+version and the JAX Pallas kernel in interpret mode, the bf16 kernel's
+weight packing and window arithmetic (mirrored here in torch) against the
+JAX plain version, the wrapper's dispatch and shape checks. The CUDA
+kernels' own tests, which need a card, are in `test_torch_cuda.py`.
 
 Tolerance rtol = atol = 1e-4, as `tests/test_fused_header.py`: float32
 convolutions summed in another order.
@@ -58,6 +59,92 @@ def test_reference_matches_jax(Bt, seed):
     assert got.shape == (4, Bt, 16, 128, 16)
     np.testing.assert_allclose(got, want_ref, **TOL)
     np.testing.assert_allclose(got, want_kernel, **TOL)
+
+
+# the bf16 kernel's tile (csrc/fused_header.cu, namespace tc)
+TR, TW = 8, 16
+
+
+def _axis_tap(flip: int, k: int):
+    """The kernel's `axis_tap`: half-res offset and phase bit of tap k."""
+    if k == 0:
+        return (1, 0) if flip else (-1, 1)
+    return 0, int((k == 1) == bool(flip))
+
+
+def _local_tap(flip: int, k: int) -> int:
+    """The kernel's `local_tap`: tap k's row in the full-res window, less
+    twice the output row."""
+    off, ph = _axis_tap(flip, k)
+    return 2 * off + ph + 1 - flip
+
+
+def _kernel_mirror(g, k3p, k1p, ca, pa, T):
+    """The bf16 kernel's arithmetic in torch, tile by tile: stage the
+    (2TR+1) x (2TW+1) full-res window at canonical origin (2*r0-1+fx,
+    2*c0-1+fy), the phase of a position its row's and column's low bits,
+    zero outside the grid by index (never reading the padding rows); the
+    conv as one shifted window a tap times the packed (t, tap) slice; the
+    pool as the 1x1 GEMM over every staged position, affine, -inf outside
+    the grid, 3x3 stride-2 max; ragged tiles cut on store."""
+    BtT, _, Hp, Wh, VC = g.shape
+    Hh, C, Cout = Hp - 2, VC // 4, k3p.shape[2]
+    Bt = BtT // T
+    gv = g.reshape(Bt, T, 4, Hp, Wh, 4, C)
+    (cs, cb), (ps, pb) = ca, pa
+    i, jj = torch.arange(TR)[:, None], torch.arange(TW)[None, :]
+    out = torch.full((4, Bt, Hh, Wh, Cout), float("nan"))
+    for v in range(4):
+        fx, fy = v >> 1, v & 1
+        for r0 in range(0, Hh, TR):
+            for c0 in range(0, Wh, TW):
+                r = 2 * r0 - 1 + fx + torch.arange(2 * TR + 1)
+                q = 2 * c0 - 1 + fy + torch.arange(2 * TW + 1)
+                inside = (((r >= 0) & (r < 2 * Hh))[:, None]
+                          & ((q >= 0) & (q < 2 * Wh))[None, :])
+                ph = 2 * (r[:, None] & 1) + (q[None, :] & 1)
+                h = (r >> 1).clamp(0, Hh - 1)[:, None] + 1
+                w = (q >> 1).clamp(0, Wh - 1)[None, :]
+                win = torch.where(inside[..., None], gv[:, :, ph, h, w, v], 0.0)
+                conv = torch.zeros(Bt, TR, TW, Cout)
+                z = torch.zeros(Bt, 2 * TR + 1, 2 * TW + 1, Cout)
+                for t in range(T):
+                    for kr in range(3):
+                        for kc in range(3):
+                            a = win[:, t, 2 * i + _local_tap(fx, kr),
+                                    2 * jj + _local_tap(fy, kc)]
+                            conv += a @ k3p[t, 3 * kr + kc].T
+                    z += win[:, t] @ k1p[t].T
+                z = torch.where(inside[..., None], z * ps + pb, -torch.inf)
+                pooled = torch.stack([z[:, 2 * i + dr, 2 * jj + dc]
+                                      for dr in range(3) for dc in range(3)])
+                y = torch.relu(conv * cs + cb + pooled.amax(0))
+                nr, nc = min(TR, Hh - r0), min(TW, Wh - c0)
+                out[v, :, r0:r0 + nr, c0:c0 + nc] = y[:, :nr, :nc]
+    return out
+
+
+@pytest.mark.parametrize("shape", [dict(Bt=2), dict(Bt=2, Hh=9, Wh=20, C=16)],
+                         ids=["unit", "ragged"])
+def test_bf16_kernel_window_arithmetic_matches_jax(shape):
+    """The packing and the window arithmetic of the bf16 kernel, all four
+    variants, against JAX's plain version in float32. The padding rows hold
+    NaN: neither side may read them."""
+    g, k3, k1, ca, pa = _rand_inputs(np.random.RandomState(6), **shape)
+    want = np.asarray(j_fh.fused_header_reference(*_jax((g, k3, k1, ca, pa)), 3))
+    g[:, :, 0] = np.nan
+    g[:, :, -1] = np.nan
+    tg, tk3, tk1, tca, tpa = _torch((g, k3, k1, ca, pa))
+    k3p, k1p = t_fh.pack_header_weights(tk3, tk1, 3)
+    C, Cout = k3.shape[2] // 3, k3.shape[3]
+    assert k3p.shape == (3, 9, Cout, C) and k1p.shape == (3, Cout, C)
+    assert k3p.is_contiguous() and k1p.is_contiguous()
+    for t, kr, kc in ((0, 0, 2), (2, 1, 0)):
+        assert torch.equal(k3p[t, 3 * kr + kc], tk3[kr, kc, t * C:(t + 1) * C].T)
+        assert torch.equal(k1p[t], tk1[0, 0, t * C:(t + 1) * C].T)
+    got = _kernel_mirror(tg, k3p, k1p, tca, tpa, 3).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_cpu_dispatch_is_the_plain_version():
