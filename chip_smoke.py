@@ -31,11 +31,26 @@ result line):
      just after (the scatters take `impl="auto"` there: the scatter kernels
      launch no time);
   6. agreement on a small input: StreamMOS_tiny in float32 through the port
-     on the card (kernel) and on the CPU (plain versions), same weights.
+     on the card (kernel) and on the CPU (plain versions), same weights;
+  7. training at full width (bf16, random weights from a seed), the
+     protocol of `bench.py:bench_train_step`: batch 1, 130k points, T=3,
+     3 windows of streaming BPTT, SGD-Nesterov with the step schedule;
+     stage 1 (StreamMOS) and stage 2 (StreamMOS_seg, refine head,
+     freeze_except="refine", bf_targets), each 2 warm-up steps then 4 timed
+     with CUDA events, launch counts zeroed just before the steps and read
+     just after (the training path launches no hand kernel), then one more
+     step under torch.profiler for the device's busy time; checks: the
+     losses finite, stage 1's parameters changed, stage 2's outside the
+     refine head bit-identical, its refine head and its backbone's BN
+     running statistics changed;
+  8. training agreement on a small input: one stage-1 and one stage-2 step
+     of StreamMOS_tiny (float32, dropout off) on the card and on the CPU
+     from the same weights and windows.
 
 TF32 is off for the whole run, so float32 convolutions and matmuls on the
-card are full float32. Prints one {"kernels": [...]} line, the card's name
-and power limit, and as the last line {"ok": true, "device": {...}}.
+card are full float32. Prints one {"kernels": [...], "train": {...}} line,
+the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -52,6 +67,10 @@ SEED = 0
 FRAMES = 8           # timed main-path frames (the first one fresh)
 WARMUP_FRAMES = 2
 POINTS = 160_000
+TRAIN_POINTS = 130_000  # bench.py's train protocol: bs1, T=3, 3 windows
+TRAIN_WINDOWS = 3
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 4
 
 # published peaks of the H100 SXM part at 700 W (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -424,13 +443,18 @@ def scatter_phase(dev, cfg):
     return entries
 
 
+def counted_kernels():
+    from streammos_tpu_torch.ops import fused_header as fh
+    from streammos_tpu_torch.ops import pallas_scatter as ps
+    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
+
+    return (fh.fused_header_tta, ps.sorted_scatter_max, pv.scatter_max_vmem)
+
+
 def main_path_phase(dev, cfg):
     """The user's loop, `serve.stream_eval`, over one sequence: the first
     frame fresh, the memory carried after."""
     from streammos_tpu_torch import serve
-    from streammos_tpu_torch.ops import fused_header as fh
-    from streammos_tpu_torch.ops import pallas_scatter as ps
-    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
     from streammos_tpu_torch.scans import skewed_scan_bank
 
     model = serve.build_model(cfg, with_refine=True, device=dev, seed=SEED)
@@ -447,7 +471,7 @@ def main_path_phase(dev, cfg):
     torch.cuda.reset_peak_memory_stats(dev)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
     outs = []
-    counted = (fh.fused_header_tta, ps.sorted_scatter_max, pv.scatter_max_vmem)
+    counted = counted_kernels()
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -515,6 +539,222 @@ def small_agreement_phase(dev):
           f"diff {worst:.3e} (tolerance 2e-3 + 2e-3*|ref|)", flush=True)
 
 
+def train_windows(cfg, dev, stage2: bool, points: int, seed: int):
+    """S windows of range-skewed scans (S, 1, T, N, 4) and labels drawn
+    from the seed (bf_targets for stage 2), on `dev`."""
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    rng = np.random.default_rng(seed)
+    xyzi = skewed_scan_bank(rng, TRAIN_WINDOWS, cfg.model.seq_num, points)
+    shape = (TRAIN_WINDOWS, 1, points)
+    w = {"xyzi": xyzi,
+         "targets": rng.integers(0, 3, shape).astype(np.int32)}
+    if stage2:
+        w["bf_targets"] = rng.integers(0, 3, shape).astype(np.int32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in w.items()}
+
+
+def device_busy(fn):
+    """One call of `fn` under torch.profiler (CUDA activity only): the
+    summed device time (ms) and the number of what ran on the card
+    (kernels, copies, fills), and the five costliest by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    check(bool(evs), "the profiler saw no device activity")
+    top = sorted(evs, key=lambda e: e.device_time_total, reverse=True)[:5]
+    return {"device_ms": sum(e.device_time_total for e in evs) / 1e3,
+            "launches": sum(e.count for e in evs),
+            "top": [[e.key[:60], e.device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def train_setup(cfg, stage2: bool, dev, seed: int):
+    """The trainer's objects: model (drawn from the seed), SGD with the
+    config's schedule and freeze mask, state and step."""
+    from streammos_tpu_torch import train as tr
+
+    model = tr.build_train_model(cfg, stage2=stage2, device=dev, seed=seed)
+    tx, _ = tr.build_optimizer(cfg.optimize, per_epoch_iters=100,
+                               params=dict(model.named_parameters()),
+                               freeze_except=cfg.freeze_except if stage2
+                               else None)
+    return (model, tr.create_train_state(model, tx),
+            tr.make_train_step(model, cfg, tx, stage2=stage2))
+
+
+def train_phase(dev):
+    """Stage 1 and stage 2 at full width through `make_train_step`."""
+    from streammos_tpu_torch.config import get_config
+
+    out = {}
+    for stage2, cfg_name in ((False, "StreamMOS"), (True, "StreamMOS_seg")):
+        cfg = get_config(cfg_name)
+        model, state, step = train_setup(cfg, stage2, dev, SEED)
+        windows = train_windows(cfg, dev, stage2, TRAIN_POINTS, SEED + 2)
+        gen = torch.Generator().manual_seed(SEED)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        counted = counted_kernels()
+        for fn in counted:
+            fn.launches = 0
+        losses = []
+        for _ in range(TRAIN_WARMUP):
+            state, metrics = step(state, windows, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(TRAIN_STEPS + 1)]
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(TRAIN_STEPS):
+            state, metrics = step(state, windows, gen)
+            losses.append(metrics["loss"])
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy = device_busy(lambda: step(state, windows, gen))
+        s_step = [events[i].elapsed_time(events[i + 1]) / 1e3
+                  for i in range(TRAIN_STEPS)]
+        losses = [float(x) for x in losses]
+        grad_norm = float(metrics["grad_norm"])
+
+        check(all(np.isfinite(losses)) and np.isfinite(grad_norm),
+              f"{cfg_name} losses {losses}, grad norm {grad_norm}")
+        check(state.step == TRAIN_WARMUP + TRAIN_STEPS + 1, "steps taken")
+        check(launches["fused_header_tta"] == 0,
+              f"{cfg_name} training launched the fused header: {launches}")
+        after = model.state_dict()
+        params = [n for n, _ in model.named_parameters()]
+        stats = [k for k in after if k.endswith(("running_mean",
+                                                 "running_var"))]
+        changed = [n for n in params if not torch.equal(after[n], before[n])]
+        if stage2:
+            refine = [n for n in params if n.startswith("refine.")]
+            check(sorted(changed) == sorted(refine),
+                  f"stage 2 changed {len(changed)} parameters, "
+                  f"{len(set(changed) - set(refine))} outside refine; "
+                  f"{len(set(refine) - set(changed))} refine unchanged")
+            backbone = [k for k in stats if not k.startswith("refine.")]
+            moved = [k for k in backbone
+                     if not torch.equal(after[k], before[k])]
+            check(len(moved) == len(backbone),
+                  f"stage 2 backbone BN statistics moved: {len(moved)} of "
+                  f"{len(backbone)}")
+            what = (f"{len(changed)} refine parameters changed, the other "
+                    f"{len(params) - len(changed)} bit-identical, "
+                    f"{len(moved)} backbone BN statistics moved")
+        else:
+            check(len(changed) == len(params),
+                  f"stage 1 changed {len(changed)} of {len(params)} "
+                  f"parameters")
+            what = f"all {len(params)} parameters changed"
+        print(f"train {cfg_name} (stage {2 if stage2 else 1}) bf16, "
+              f"{TRAIN_POINTS} points x T={cfg.model.seq_num} x "
+              f"{TRAIN_WINDOWS} windows, bs1, SGD-Nesterov: "
+              f"{np.mean(s_step):.4f} s/step mean over {TRAIN_STEPS} "
+              f"(CUDA events; per step "
+              + ", ".join(f"{x:.4f}" for x in s_step)
+              + f"), host wall {wall_s / TRAIN_STEPS:.4f} s/step, peak "
+              f"memory {peak_gb:.2f} GB; losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f"; grad norm {grad_norm:.4f}; {what}; launches {launches}",
+              flush=True)
+        print(f"train {cfg_name} one more step under torch.profiler: "
+              f"{busy['device_ms']:.2f} ms of device time in "
+              f"{busy['launches']} kernels/copies/fills, "
+              f"{busy['device_ms'] / 1e3 / np.mean(s_step):.3f} of the "
+              f"unprofiled step; costliest: "
+              + "; ".join(f"{k} {t:.2f} ms x{c}" for k, t, c in busy["top"]),
+              flush=True)
+        out[cfg_name] = {"stage": 2 if stage2 else 1,
+                         "s_per_step": float(np.mean(s_step)),
+                         "s_per_step_each": s_step,
+                         "peak_memory_gb": peak_gb, "losses": losses,
+                         "launches": launches,
+                         "device_ms_per_step": busy["device_ms"],
+                         "device_launches_per_step": busy["launches"],
+                         "device_busy_share": busy["device_ms"] / 1e3
+                         / float(np.mean(s_step))}
+        del model, state, step, windows, before, after
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_agreement(dev):
+    """One stage-1 and one stage-2 step of StreamMOS_tiny (float32,
+    dropout off) on `dev` and on the CPU, same weights and windows.
+    Tolerances: loss rtol 1e-4; gradient norm rtol 1e-3; BN statistics
+    rtol = atol = 1e-3; the updates, all parameters together, within a
+    relative L2 distance of 1e-2, each parameter's within 5e-2 (a ReLU
+    input or a scatter's runner-up within ~1e-6 of its switch routes the
+    gradient differently on the two devices; on the CPU, such a switch
+    between the port and JAX moved the update by 1.4e-3 overall and 8e-3
+    in its worst tensor). Returns the largest differences seen."""
+    import dataclasses
+
+    from streammos_tpu_torch.config import get_config
+
+    cfg = get_config("StreamMOS_tiny")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0),
+        optimize=dataclasses.replace(cfg.optimize, pct_start=0.0))
+    worst = {}
+    for stage2 in (False, True):
+        runs = []
+        for d in ("cpu", dev):
+            model, state, step = train_setup(cfg, stage2, d, SEED + 3)
+            before = {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}
+            windows = train_windows(cfg, d, stage2, 1024, SEED + 4)
+            state, metrics = step(state, windows)
+            runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                         before, {k: v.detach().cpu()
+                                  for k, v in model.state_dict().items()},
+                         [n for n, _ in model.named_parameters()]))
+        (l0, g0, b0, a0, names), (l1, g1, _, a1, _) = runs
+        name = f"stage {2 if stage2 else 1}"
+        check(abs(l1 - l0) <= 1e-4 * abs(l0), f"{name} loss {l1} vs {l0}")
+        check(abs(g1 - g0) <= 1e-3 * abs(g0), f"{name} grad norm {g1} vs {g0}")
+        stat_err = 0.0
+        for k in a0:
+            if k.endswith(("running_mean", "running_var")):
+                excess = float(((a1[k] - a0[k]).abs()
+                                - 1e-3 * (1 + a0[k].abs())).max())
+                stat_err = max(stat_err, float((a1[k] - a0[k]).abs().max()))
+                check(excess <= 0, f"{name} {k}: card vs CPU")
+        num = den = 0.0
+        tensor_err = 0.0
+        for n in names:
+            d0, d1 = a0[n] - b0[n], a1[n] - b0[n]
+            if not d0.any():
+                check(not d1.any(), f"{name} {n} moved on the card only")
+                continue
+            dist = float((d1 - d0).norm())
+            num, den = num + dist ** 2, den + float(d0.norm()) ** 2
+            tensor_err = max(tensor_err, dist / float(d0.norm()))
+        overall = (num / den) ** 0.5
+        check(tensor_err <= 5e-2 and overall <= 1e-2,
+              f"{name} updates: relative L2 {overall} overall, "
+              f"{tensor_err} worst tensor")
+        print(f"small train step (StreamMOS_tiny f32, {name}): card vs CPU "
+              f"loss {l1:.6f} vs {l0:.6f}, grad norm {g1:.5f} vs {g0:.5f}, "
+              f"updates relative L2 {overall:.3e} overall / {tensor_err:.3e} "
+              f"worst tensor, BN statistics max abs diff {stat_err:.3e} "
+              f"(tolerances: loss 1e-4, grad norm 1e-3 relative; updates "
+              f"1e-2 / 5e-2; statistics 1e-3 + 1e-3*|ref|)", flush=True)
+        worst[name] = {"update_rel_l2": overall, "worst_tensor": tensor_err,
+                       "stat_abs": stat_err}
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -544,16 +784,26 @@ def main() -> int:
     scatters = scatter_phase(dev, cfg)
     main = main_path_phase(dev, cfg)
     small_agreement_phase(dev)
+    train = train_phase(dev)
+    agreement = train_agreement(dev)
 
     kernel["launches"] = main["launches"]["fused_header_tta"]
     kernel["launches_per_frame"] = kernel["launches"] / FRAMES
     for k in scatters:
         k["launches_per_frame"] = main["launches"][k["name"]] / FRAMES
+    for k in (kernel, *scatters):
+        k["launches_training_path"] = sum(
+            t["launches"][k["name"]] for t in train.values())
     print(json.dumps({"kernels": [kernel, *scatters],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
                                     "ms_per_frame": main["ms_per_frame"],
-                                    "peak_memory_gb": main["peak_gb"]}}),
+                                    "peak_memory_gb": main["peak_gb"]},
+                      "train": {"points": TRAIN_POINTS,
+                                "windows": TRAIN_WINDOWS, "batch": 1,
+                                "dtype": "bfloat16",
+                                "steps_timed": TRAIN_STEPS, **train,
+                                "card_vs_cpu": agreement}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,16 +1,17 @@
-"""Network building blocks, eval only.
+"""Network building blocks.
 
 Counterparts of `streammos_tpu/nn/blocks.py`. Dense grids are NCHW inside
 the modules; point tensors are (..., N, C), or (..., N, fold*C) with the TTA
-variants folded v-major on channels. Parameters and buffers carry the names
-of the reference torch `AttNet` state_dict (the keys
-`streammos_tpu_torch/weights.py:build_mapping` emits), and stay float32;
-each module casts its weights to the activation dtype, so a bfloat16 input
-runs in bfloat16 as the JAX modules do.
+variants folded v-major on channels (an eval-only layout, as in JAX).
+Parameters and buffers carry the names of the reference torch `AttNet`
+state_dict (the keys `streammos_tpu_torch/weights.py:build_mapping` emits),
+and stay float32; each module casts its weights to the activation dtype, so
+a bfloat16 input runs in bfloat16 as the JAX modules do. Train mode is the
+module's `training` flag: batch-statistics BatchNorm and active dropout.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,27 +24,90 @@ BN_EPS = 1e-5
 
 
 class BN(nn.BatchNorm2d):
-    """Eval BatchNorm as its per-channel affine, scale = weight *
-    rsqrt(running_var + eps), shift = bias - running_mean * scale, computed
-    in float32 and applied in the activation dtype.
+    """flax `nn.BatchNorm` (momentum 0.9, eps 1e-5) as `BN` of the JAX
+    blocks runs it.
+
+    Eval: the per-channel affine, scale = weight * rsqrt(running_var + eps),
+    shift = bias - running_mean * scale, computed in float32 and applied in
+    the activation dtype.
+
+    Train: batch statistics in float32 over every axis but the channel
+    axis, the variance as E[x^2] - E[x]^2 clipped at 0 (biased), the
+    normalization in float32 and the result cast back to the input dtype.
+    The running statistics move to 0.9 * old + 0.1 * batch, with the biased
+    variance (torch's BatchNorm uses the unbiased one), unless
+    `update_stats` is off, as it is while a checkpointed forward runs again.
 
     fold == 0: NCHW input, channels on dim 1. fold >= 1: channels last, as
     `fold` v-major blocks that share the (C,) statistics (the folded TTA
-    point layout)."""
+    point layout, eval only when fold > 1)."""
 
     def __init__(self, num_features: int, fold: int = 0):
         super().__init__(num_features, eps=BN_EPS, momentum=0.1)
         self.fold = fold
+        self.update_stats = True
 
     def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         return scale, self.bias.float() - self.running_mean.float() * scale
 
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold > 1:
+            raise ValueError("folded BN is an eval-only layout")
+        ch = x.ndim - 1 if self.fold else 1
+        axes = [d for d in range(x.ndim) if d != ch]
+        shape = [1] * x.ndim
+        shape[ch] = -1
+        xf = x.float()
+        mean = xf.mean(axes)
+        var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+        return y.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         scale, shift = (a.to(x.dtype) for a in self.eval_affine())
         if self.fold:
             return torch.addcmul(shift.repeat(self.fold), x, scale.repeat(self.fold))
         return torch.addcmul(shift[:, None, None], x, scale[:, None, None])
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout` in train mode: each element kept with probability
+    1 - rate and scaled by 1 / (1 - rate), the mask drawn from `generator`,
+    an explicit `torch.Generator` on the input's device that the caller
+    sets (`set_dropout_generator`). The identity in eval and at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("dropout in train mode draws from an explicit "
+                               "generator: call set_dropout_generator first")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every Dropout under `module` at `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class Conv2d(nn.Conv2d):
@@ -88,14 +152,23 @@ class PointConv(nn.Module):
 
 
 def maxpool3x3(x: torch.Tensor, stride: int) -> torch.Tensor:
-    """3x3 max-pool, padding 1 with -inf, on NCHW."""
-    return F.max_pool2d(x, 3, stride=stride, padding=1)
+    """3x3 max-pool, padding 1 with -inf, on NCHW, as JAX's `maxpool3x3`
+    computes it: pairwise maxima along W, then along H. Its gradient then
+    is JAX's too: `torch.maximum`, like `jax.lax.max`, halves the gradient
+    between tied inputs, where `F.max_pool2d` gives it to one element."""
+    xp = F.pad(x, (1, 1, 1, 1), value=float("-inf"))
+    m = torch.maximum(torch.maximum(xp[..., :-2], xp[..., 1:-1]), xp[..., 2:])
+    m = torch.maximum(torch.maximum(m[..., :-2, :], m[..., 1:-1, :]),
+                      m[..., 2:, :])
+    return m[..., ::stride, ::stride]
 
 
 class DownSample2D(nn.Module):
     """3x3 conv + BN in parallel with 1x1 conv + BN + 3x3 max-pool, sum,
-    ReLU. `forward` takes NCHW; `forward_tta_fused` takes the phase-outer
-    scatter output and runs the fused TTA header."""
+    ReLU. `forward` takes NCHW, or the frame-split (B, T, H, W, c) channels-
+    last stack of T frames, which it runs as the conv over their frame-major
+    channel concat (channel t*c + i); `forward_tta_fused` takes the
+    phase-outer scatter output and runs the fused TTA header."""
 
     def __init__(self, in_planes: int, out_planes: int, stride: int = 1):
         super().__init__()
@@ -106,6 +179,9 @@ class DownSample2D(nn.Module):
             Conv2d(in_planes, out_planes, 1, bias=False), BN(out_planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 5:
+            B, T, H, W, c = x.shape
+            x = x.permute(0, 1, 4, 2, 3).reshape(B, T * c, H, W)
         conv_b = self.conv_branch(x)
         pool_b = maxpool3x3(self.pool_branch(x), self.stride)
         return torch.relu(conv_b + pool_b)
@@ -196,7 +272,9 @@ class BasicConv2d(nn.Module):
         self.bn = BN(out_planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(self.bn(self.conv(x)), 0.01)
+        # jax.nn.leaky_relu's form: slope 1 at 0 in the gradient
+        x = self.bn(self.conv(x))
+        return torch.where(x >= 0, x, 0.01 * x)
 
 
 class PointNet(nn.Module):
@@ -235,14 +313,14 @@ class PointNetStacker(nn.Module):
 
 
 class CatFusion(nn.Module):
-    """Point-level fusion: per variant, concat the sources, then two 1x1
-    conv + BN + ReLU stages (sum -> sum/2 -> out). Dropout is the identity
-    in eval."""
+    """Point-level fusion: per variant, concat the sources, dropout, then
+    two 1x1 conv + BN + ReLU stages (sum -> sum/2 -> out)."""
 
     def __init__(self, in_channels: Sequence[int], out_channel: int,
-                 fold: int = 1):
+                 fold: int = 1, dropout_rate: float = 0.2):
         super().__init__()
         s = sum(in_channels)
+        self.dropout = Dropout(dropout_rate)
         self.merge_layer = nn.Sequential(
             PointConv(s, s // 2, fold=fold), BN(s // 2, fold), nn.ReLU(),
             PointConv(s // 2, out_channel, fold=fold), BN(out_channel, fold),
@@ -250,18 +328,21 @@ class CatFusion(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         dt = xs[0].dtype
-        x = self.merge_layer[0]([v.to(dt) for v in xs])
+        # dropout is elementwise: per source equals on the concat
+        x = self.merge_layer[0]([self.dropout(v.to(dt)) for v in xs])
         for layer in self.merge_layer[1:]:
             x = layer(x)
         return x
 
 
 class PredBranch(nn.Module):
-    """1x1 classifier head with bias (dropout is the identity in eval)."""
+    """Dropout + 1x1 classifier head with bias."""
 
-    def __init__(self, cin: int, cout: int, fold: int = 1):
+    def __init__(self, cin: int, cout: int, fold: int = 1,
+                 dropout_rate: float = 0.2):
         super().__init__()
+        self.dropout = Dropout(dropout_rate)
         self.pred_layer = nn.Sequential(PointConv(cin, cout, bias=True, fold=fold))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pred_layer(x)
+        return self.pred_layer(self.dropout(x))

@@ -1,7 +1,8 @@
-"""Deformable-attention temporal fusion, eval only.
+"""Deformable-attention temporal fusion.
 
 Counterparts of `streammos_tpu/nn/deform.py`: single-level `MSDeformAttn`,
-the cross-attention + LayerNorm + FFN `DeformAttnLayer`, and the stacked
+the cross-attention + LayerNorm + FFN `DeformAttnLayer` (dropout after the
+attention and twice in the FFN, at JAX's sites), and the stacked
 `DeformAttnModule` over per-pixel reference points. Parameter names follow
 the reference torch state_dict (`deformattn_module.deformattn_layers.{i}`).
 """
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from streammos_tpu_torch.nn.blocks import Linear
+from streammos_tpu_torch.nn.blocks import Dropout, Linear
 from streammos_tpu_torch.ops.deform_attn import deform_attn_sample
 
 
@@ -67,9 +68,12 @@ class DeformAttnLayer(nn.Module):
     the LayerNorms run in float32."""
 
     def __init__(self, d_model: int = 128, d_ffn: int = 512, n_heads: int = 4,
-                 n_points: int = 4):
+                 n_points: int = 4, dropout: float = 0.0):
         super().__init__()
         self.cross_attn = MSDeformAttn(d_model, n_heads, n_points)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = Linear(d_model, d_ffn)
         self.linear2 = Linear(d_ffn, d_model)
@@ -77,9 +81,11 @@ class DeformAttnLayer(nn.Module):
 
     def forward(self, query, ref_points, src, spatial_hw):
         dt = query.dtype
-        attn_out = self.cross_attn(query, ref_points, src, spatial_hw)
+        attn_out = self.dropout1(self.cross_attn(query, ref_points, src,
+                                                 spatial_hw))
         query = self.norm1((query + attn_out).float()).to(dt)
-        ffn = self.linear2(torch.relu(self.linear1(query)))
+        ffn = self.dropout2(torch.relu(self.linear1(query)))
+        ffn = self.dropout3(self.linear2(ffn))
         return self.norm2((query + ffn).float()).to(dt)
 
 
@@ -88,10 +94,11 @@ class DeformAttnModule(nn.Module):
     against the current frame's features."""
 
     def __init__(self, num_layers: int = 2, d_model: int = 128,
-                 d_ffn: int = 512, n_heads: int = 4, n_points: int = 4):
+                 d_ffn: int = 512, n_heads: int = 4, n_points: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         self.deformattn_layers = nn.ModuleList(
-            DeformAttnLayer(d_model, d_ffn, n_heads, n_points)
+            DeformAttnLayer(d_model, d_ffn, n_heads, n_points, dropout)
             for _ in range(num_layers))
 
     def forward(self, query: torch.Tensor, src: torch.Tensor,

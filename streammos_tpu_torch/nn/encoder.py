@@ -1,11 +1,13 @@
 """Cascaded multi-view (BEV + range-view) encoder with deformable-attention
-temporal fusion, eval only, on the folded-TTA path.
+temporal fusion.
 
-Counterpart of `streammos_tpu/nn/encoder.py:MultiViewEncoder` with
-``tta_fold=True`` and the fused header: the dense side runs on batch V*Bt
-(variants on the batch axis, NCHW inside), while every point-mediated
-cascade gathers and scatters once over the variants' shared index structure
-with the variants folded on channels (`ops/tta_fold.py`).
+Counterpart of `streammos_tpu/nn/encoder.py:MultiViewEncoder`. With
+``tta_fold=False`` (train and eval) every cascade is the plain
+`grid_to_point` gather and `voxel_max_pool` scatter. With ``tta_fold=True``
+(eval only) the dense side runs on batch V*Bt (variants on the batch axis,
+NCHW inside), while every point-mediated cascade gathers and scatters once
+over the variants' shared index structure with the variants folded on
+channels (`ops/tta_fold.py`).
 """
 from __future__ import annotations
 
@@ -19,8 +21,10 @@ from streammos_tpu_torch.nn.blocks import (BasicBlock, BasicConv2d, Conv2d,
                                            DownSample2D, UnbalanceBasicBlock)
 from streammos_tpu_torch.nn.deform import DeformAttnModule
 from streammos_tpu_torch.ops.resize import resize_bilinear_align_corners
+from streammos_tpu_torch.ops.sample import grid_to_point
 from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
+from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
 
 
 class ConvStage(nn.Sequential):
@@ -60,16 +64,20 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiViewEncoder(nn.Module):
-    """Inputs: the phase-outer scatter output (Bt*T, 4, H/2+2, W/2, V*c0);
-    bev_coord, rv_coord (Bt, N, 2) canonical current-frame coords; memory
-    (V*Bt, Hq, Wq, D); use_memory (False selects the learned query).
+    """Inputs: bev_in, the frame-split stack (B, T, H, W, c0) of the full
+    grid or, with `header_phase_T` = T (folded, fused header), the
+    phase-outer scatter output (Bt*T, 4, H/2+2, W/2, V*c0); bev_coord,
+    rv_coord (Bt, N, 2) current-frame coords (canonical when folded);
+    memory (B, Hq, Wq, D); use_memory (False selects the learned query).
+    B is Bt, or V*Bt when folded.
 
-    Returns (out NCHW, point_feat_1 (Bt, N, V*c2), aux0-2 NHWC,
-    new_memory (V*Bt, Hq, Wq, D) float32)."""
+    Returns (out NCHW, point_feat_1 (Bt, N, c2) or folded (Bt, N, V*c2),
+    aux0-2 NHWC, new_memory (B, Hq, Wq, D) float32)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tta_fold: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.tta_fold = tta_fold
         c0, c1, c2, c3 = cfg.context_layers
         n1, n2, n3 = cfg.layers
         T = cfg.seq_num
@@ -82,7 +90,7 @@ class MultiViewEncoder(nn.Module):
         self.query_embed = nn.Embedding(hq * wq, cfg.d_model)
         self.deformattn_module = DeformAttnModule(
             cfg.n_attn_layers, cfg.d_model, cfg.ffn_dim, cfg.n_heads,
-            cfg.n_points)
+            cfg.n_points, cfg.attn_dropout)
         self.conv_1 = BasicConv2d(c1 * 2 + c2 * 2 + c3, 128, 3, 1)
         self.conv_2 = BasicConv2d(128, self.out_channels(cfg), 3, 1)
         self.aux_head1 = Conv2d(2 * c1, cfg.class_num, 1)
@@ -95,22 +103,28 @@ class MultiViewEncoder(nn.Module):
         return ((c3 + c2) // 2 + c1) // 2
 
     def forward(self, bev_in, bev_coord, rv_coord, memory, use_memory: bool,
-                header_phase_T: int):
+                header_phase_T: int = 0):
         cfg = self.cfg
         rv_h, rv_w = cfg.voxel.rv_shape
 
         def gather(grid, coords, scale, kind):
             g = _nhwc(grid)
+            if not self.tta_fold:
+                return grid_to_point(g, coords, scale)
             g = g.reshape(V_TTA, g.shape[0] // V_TTA, *g.shape[1:])
             return grid_to_point_tta(g, coords, scale, kind)
 
         def scatter(pts, coords, out_size, scale, kind):
             # gathered features are blends of post-ReLU grids: non-negative
+            if not self.tta_fold:
+                return _nchw(voxel_max_pool(pts, coords, out_size, scale,
+                                            nonneg=True))
             out = voxel_max_pool_tta(pts, coords, out_size, scale, kind,
                                      nonneg=True)
             return _nchw(out.reshape(-1, *out.shape[2:]))
 
-        # stage 0: full grid -> 1/2 (fused header), cascade through the RV
+        # stage 0: full grid -> 1/2 (the fused header when folded), cascade
+        # through the RV
         x0 = self.header_bev(bev_in, header_phase_T)
         x0_point = gather(x0, bev_coord, (0.5, 0.5), "bev")
         x0_rv = scatter(x0_point, rv_coord, (rv_h // 2, rv_w // 2), (0.5, 0.5), "rv")

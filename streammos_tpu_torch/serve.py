@@ -35,7 +35,7 @@ def build_model(cfg: Config, *, with_refine: bool = True, device="cuda",
     """The eval model on `device`, with weights from `state_dict` (reference
     key names) or, failing that, drawn from `seed`."""
     device = resolve_device(device)
-    model = StreamMOSNet(cfg.model, with_refine=with_refine)
+    model = StreamMOSNet(cfg.model, with_refine=with_refine, tta_fold=True)
     if state_dict is not None:
         load_state_dict_checked(model, state_dict)
     else:

@@ -67,13 +67,36 @@ def jax_tiny_model(num_points: int = 512, with_refine: bool = True):
     return model, variables
 
 
-def port_model(variables, with_refine: bool = True) -> StreamMOSNet:
-    """The port model on the CPU with the JAX variables carried across."""
-    _, cfg = tiny_cfgs()
-    model = StreamMOSNet(cfg, with_refine=with_refine).eval()
+def port_model(variables, with_refine: bool = True, tta_fold: bool = True,
+               cfg=None) -> StreamMOSNet:
+    """The port model on the CPU, in eval mode, with the JAX variables
+    carried across (`cfg`: the port ModelConfig, StreamMOS_tiny's by
+    default)."""
+    cfg = tiny_cfgs()[1] if cfg is None else cfg
+    model = StreamMOSNet(cfg, with_refine=with_refine, tta_fold=tta_fold).eval()
     load_state_dict_checked(model, from_flax_variables(variables, cfg,
                                                        with_refine))
     return model
+
+
+def without_refine(variables):
+    """A variables tree without the refine head (stage 1's tree)."""
+    return {k: {n: v for n, v in tree.items() if n != "refine"}
+            for k, tree in variables.items()}
+
+
+def compile_unfused(jitted, *args):
+    """`jitted` compiled for `args` with XLA's fusion pass off.
+
+    Fused, XLA:CPU recomputes a scatter's point features inside the
+    backward's tie test ``feat == cell_max``
+    (`streammos_tpu/ops/voxel_pool.py:279`) and rounds them differently
+    from the maxima it stored, so the test fails for some points and their
+    gradient is dropped (about 9% of the entries of a (3, 512, 64)
+    BN + ReLU + scatter example); unfused, the jitted gradient equals JAX
+    run op by op (`jax.disable_jit`), which the port matches."""
+    return jitted.lower(*args).compile(
+        compiler_options={"xla_disable_hlo_passes": "fusion"})
 
 
 def jnp_tree(variables):

@@ -239,3 +239,16 @@ def test_voxel_max_pool_kernels_match_auto(cuda, layout, dtype):
     for impl in ("pallas", "vmem"):
         assert torch.equal(results[impl][0], results["auto"][0]), impl
         assert torch.equal(results[impl][1], results["auto"][1]), impl
+
+
+@pytest.mark.cuda
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
+    """One stage-1 and one stage-2 train step of StreamMOS_tiny (float32,
+    dropout off) on the card against the same step on the CPU, from the
+    same weights and windows: loss, gradient norm, every update and every
+    BN statistic within the tolerances `chip_smoke.train_agreement`
+    states."""
+    import chip_smoke
+
+    worst = chip_smoke.train_agreement(cuda)
+    assert set(worst) == {"stage 1", "stage 2"}

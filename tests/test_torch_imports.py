@@ -36,5 +36,6 @@ def test_port_imports_no_jax():
     for name in ("config", "geometry", "weights", "serve", "build",
                  "ops.fused_header", "ops.voxel_pool", "ops.pallas_scatter",
                  "ops.pallas_scatter_vmem", "nn.encoder",
-                 "models.stream_mos"):
+                 "models.stream_mos", "losses", "data.semantic_kitti",
+                 "train.optim", "train.trainer", "train.checkpoint"):
         assert f"streammos_tpu_torch.{name}" in report["modules"]
