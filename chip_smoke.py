@@ -45,18 +45,37 @@ result line):
      running statistics changed;
   8. training agreement on a small input: one stage-1 and one stage-2 step
      of StreamMOS_tiny (float32, dropout off) on the card and on the CPU
-     from the same weights and windows.
+     from the same weights and windows;
+  9. the host side, on a synthetic SemanticKITTI tree written from the seed
+     (`tests/synthetic_kitti.py`: sequence 08 of 12 frames and 00 of 8, of
+     125k-point scans with a moving car) under `build/`: host ms a sample
+     of `EvalDataset` on the native and the numpy path (identical arrays
+     required) and of `TrainDataset` inline and through `SampleWorkerPool`;
+     the val CLI's function (`tools.val.run_eval`, StreamMOS_seg, bf16,
+     160k points, weights from the seed) over sequence 08, with launch
+     counts zeroed just before and read just after (the header once a
+     frame, the scatter kernels never), CUDA events around each
+     `eval_step` and the host wall per frame; checks: one `.label` (values
+     in {0, 9, 251}) and one bf-label a frame, a finite moving_iou in
+     `record_0.txt`; the train CLI as a subprocess (StreamMOS, bs1, 130k
+     points, 4 steps, one epoch, validation over sequence 08 after it),
+     then again, which must resume and take no step; checks: the
+     checkpoint, finite losses and a `val/` scalar in `scalars.jsonl`, the
+     drop list; its logged s/step beside the train phase's.
 
 TF32 is off for the whole run, so float32 convolutions and matmuls on the
-card are full float32. Prints one {"kernels": [...], "train": {...}} line,
-the card's name and power limit, and as the last line
+card are full float32. Prints one {"kernels": [...], "train": {...},
+"host": {...}} line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -71,6 +90,10 @@ TRAIN_POINTS = 130_000  # bench.py's train protocol: bs1, T=3, 3 windows
 TRAIN_WINDOWS = 3
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 4
+REPO = os.path.dirname(os.path.abspath(__file__))
+DATA_FRAMES = {"08": 12, "00": 8}  # dataset phase: sequence -> frames
+RAW_POINTS = 125_000  # points a synthetic scan (an HDL-64 scan's size)
+CLI_STEPS = 4
 
 # published peaks of the H100 SXM part at 700 W (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -755,6 +778,250 @@ def train_agreement(dev):
     return worst
 
 
+def write_tree(root: str) -> str:
+    """The synthetic SemanticKITTI tree of the dataset phase (numpy, from
+    the seed): sequences 08 and 00 of RAW_POINTS-point scans (a moving
+    car, road, a building), labels, poses, calib. `tests/synthetic_kitti.py`
+    is loaded by its path: an installed package named `tests` may shadow
+    the repository's directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_kitti", os.path.join(REPO, "tests", "synthetic_kitti.py"))
+    synthetic = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic)
+    make_sequence = synthetic.make_sequence
+    seqs = os.path.join(root, "sequences")
+    for i, (seq, n) in enumerate(DATA_FRAMES.items()):
+        make_sequence(seqs, seq, n_frames=n, n_points=RAW_POINTS,
+                      seed=SEED + i)
+    return seqs
+
+
+def loader_timings(seqs: str):
+    """Host time a sample of `EvalDataset` (native and numpy path, 160k
+    points, sequence 08) and of `TrainDataset` (StreamMOS, 130k points,
+    sequence 00; inline and through `SampleWorkerPool` at the config's
+    workers). The two eval paths must give identical arrays."""
+    from streammos_tpu_torch.config import get_config
+    from streammos_tpu_torch.data.dataset import EvalDataset, TrainDataset
+    from streammos_tpu_torch.data.loader import SampleWorkerPool
+
+    seg = get_config("StreamMOS_seg")
+    dcfg = dataclasses.replace(seg.val, seq_dir=seqs, frame_point_num=POINTS)
+    out = {}
+    samples = {}
+    for native in (True, False):
+        ds = EvalDataset(dcfg, seq_ids=[8], native=native)
+        ds[0]  # the native library builds on its first call
+        t0 = time.perf_counter()
+        samples[native] = [ds[i] for i in range(len(ds))]
+        out["eval_native_ms" if native else "eval_numpy_ms"] = (
+            (time.perf_counter() - t0) / len(ds) * 1e3)
+    for a, b in zip(samples[True], samples[False]):
+        for k in a:
+            same = (np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+                    else a[k] == b[k])
+            check(same, f"EvalDataset native != numpy at {k}")
+    n_valid = POINTS - samples[True][0]["pad_length"]
+    del samples
+
+    cfg = get_config("StreamMOS")
+    tcfg = dataclasses.replace(cfg.train, seq_dir=seqs,
+                               frame_point_num=TRAIN_POINTS)
+    ds = TrainDataset(tcfg, seq_ids=[0], seed=SEED)
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        sample = ds[i]
+    out["train_inline_ms"] = (time.perf_counter() - t0) / len(ds) * 1e3
+    check(sample["xyzi"].shape == (3, 3, TRAIN_POINTS, 4), "train sample")
+    order = list(range(len(ds))) * 2
+    t0 = time.perf_counter()
+    with SampleWorkerPool(ds, tcfg.num_workers, seed=SEED) as pool:
+        stamps = [time.perf_counter() for _ in pool.map_ordered(order)]
+        workers = pool.num_workers
+    out["train_pool_startup_s"] = stamps[0] - t0
+    out["train_pool_ms"] = (stamps[-1] - stamps[0]) / (len(order) - 1) * 1e3
+    out["train_pool_workers"] = workers
+    print(f"loader (host, {RAW_POINTS}-point scans): EvalDataset "
+          f"{out['eval_native_ms']:.1f} ms/sample native, "
+          f"{out['eval_numpy_ms']:.1f} numpy (identical arrays; {n_valid} "
+          f"valid of {POINTS}); TrainDataset ({TRAIN_POINTS} points, 3 "
+          f"windows x T=3) {out['train_inline_ms']:.1f} ms/sample inline, "
+          f"{out['train_pool_ms']:.1f} through SampleWorkerPool({workers}) "
+          f"once running ({out['train_pool_startup_s']:.2f} s to its first "
+          f"sample)", flush=True)
+    return out
+
+
+def val_cli_phase(seqs: str, work: str):
+    """The val CLI's function (`tools.val.run_eval`) in process, as
+    `python -m streammos_tpu_torch.tools.val --config StreamMOS_seg --data
+    ... --points 160000` runs it on sequence 08 with weights drawn from the
+    config's seed: CUDA events around each `serve.eval_step`, host wall of
+    the stream (load, step, argmax to the host, `.label` written), both
+    a frame after the first; launch counts zeroed just before and read
+    just after."""
+    from streammos_tpu_torch import serve
+    from streammos_tpu_torch.tools import val as val_cli
+    from streammos_tpu_torch.train import evaluate
+    from streammos_tpu_torch.utils.logging import config_logger
+
+    frames = DATA_FRAMES["08"]
+    args = val_cli.parse_args(["--config", "StreamMOS_seg", "--tag", "smoke",
+                               "--data", seqs, "--points", str(POINTS)])
+    cfg = val_cli.eval_config(args)
+    events, starts, ends = [], [], []
+    step, stream = serve.eval_step, evaluate.stream_eval
+
+    def timed_step(*a, **k):
+        starts.append(time.perf_counter())
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        pair[0].record()
+        out = step(*a, **k)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    def timed_stream(*a, **k):
+        out = stream(*a, **k)
+        ends.append(time.perf_counter())
+        return out
+
+    counted = counted_kernels()
+    cwd = os.getcwd()
+    os.chdir(work)
+    serve.eval_step, evaluate.stream_eval = timed_step, timed_stream
+    try:
+        logger = config_logger(os.path.join("experiments", cfg.name, "smoke",
+                                            "log_val.txt"))
+        for fn in counted:
+            fn.launches = 0
+        result = val_cli.run_eval(cfg, args, True, logger)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+    finally:
+        serve.eval_step, evaluate.stream_eval = step, stream
+        os.chdir(cwd)
+
+    exp = os.path.join(work, "experiments", "StreamMOS_seg", "smoke")
+    for sub, allowed in (("val_results", {0, 9, 251}),
+                         ("val_bf_results", {0, 1, 2})):
+        d = os.path.join(exp, sub, "sequences", "08", "predictions")
+        names = sorted(os.listdir(d))
+        check(names == [f"{i:06d}.label" for i in range(frames)],
+              f"{sub}: {len(names)} label files for {frames} frames")
+        for name in names:
+            lab = np.fromfile(os.path.join(d, name), dtype=np.uint32)
+            check(lab.shape == (RAW_POINTS,), f"{sub}/{name} {lab.shape}")
+            check(set(np.unique(lab).tolist()) <= allowed,
+                  f"{sub}/{name} values {np.unique(lab)}")
+    with open(os.path.join(exp, "record_0.txt")) as f:
+        record = f.read().strip().splitlines()
+    check(len(record) == 1, f"record_0.txt has {len(record)} lines")
+    miou = float(record[0].split("moving_iou: ")[1].split(";")[0])
+    check(np.isfinite(miou) and np.isfinite(result["moving_iou"]),
+          f"moving_iou {miou}")
+    check(launches["fused_header_tta"] == frames,
+          f"CLI path header launches {launches} != {frames} frames")
+    check(launches["sorted_scatter_max"] == 0
+          and launches["scatter_max_vmem"] == 0,
+          f"CLI path scatter launches {launches}")
+    ms = [a.elapsed_time(b) for a, b in events]
+    check(len(ms) == frames and len(ends) == 1, "one step a frame")
+    # after the first frame: the stream's wall from the second frame's
+    # step to the last label file written, a frame
+    return {"frames": frames, "launches": launches, "moving_iou": miou,
+            "eval_step_ms": float(np.mean(ms[1:])),
+            "eval_step_ms_first": ms[0], "eval_step_ms_each": ms,
+            "host_wall_ms_per_frame": (ends[0] - starts[1]) / (frames - 1)
+            * 1e3}
+
+
+def train_cli_phase(seqs: str, work: str):
+    """`python -m streammos_tpu_torch.tools.train` as a subprocess:
+    StreamMOS, batch 1, 130k points, 4 steps, one epoch, validation over
+    sequence 08 after it; then the same command again, which must resume
+    and take no step. Returns the s/step the trainer logged."""
+    cmd = [sys.executable, "-m", "streammos_tpu_torch.tools.train",
+           "--config", "StreamMOS", "--tag", "smoke", "--data", seqs,
+           "--batch-size", "1", "--points", str(TRAIN_POINTS),
+           "--max-steps", str(CLI_STEPS), "--epochs", "1",
+           "--start-val-epoch", "0"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    exp = os.path.join(work, "experiments", "StreamMOS", "smoke")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                              text=True, timeout=600)
+        runs.append(time.perf_counter() - t0)
+        check(proc.returncode == 0, f"train CLI exit {proc.returncode}:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        if len(runs) == 1:
+            with open(os.path.join(exp, "scalars.jsonl")) as f:
+                first = [json.loads(line) for line in f]
+
+    check(os.path.exists(os.path.join(exp, "checkpoint", "0000", "state.pt")),
+          "checkpoint 0000/state.pt")
+    losses = [s["value"] for s in first if s["tag"] == "loss"]
+    check(bool(losses) and all(np.isfinite(losses)), f"losses {losses}")
+    check(any(s["tag"].startswith("val/") for s in first), "a val/ scalar")
+    with open(os.path.join(exp, "train_split_dynamic_pointnumber.txt")) as f:
+        drop = f.read().split()
+    check(len(drop) > 0 and len(drop) % 3 == 0, f"drop list {len(drop)}")
+    with open(os.path.join(exp, "scalars.jsonl")) as f:
+        check(len(f.readlines()) == len(first), "the resumed run logged")
+    with open(os.path.join(exp, "log_train.txt")) as f:
+        log = f.read()
+    check("resumed from epoch 0" in log, "the second run did not resume")
+    line = next(l for l in log.splitlines() if f"epoch 0: {CLI_STEPS} steps in"
+                in l)
+    s_step, s_after = (float(p.split(" s/step")[0])
+                       for p in line.split(", ")[1:3])
+    val_line = next(l for l in log.splitlines() if "evaluated" in l)
+    print(f"train CLI StreamMOS bs1, {TRAIN_POINTS} points, {CLI_STEPS} "
+          f"steps: {s_step:.4f} s/step logged, {s_after:.4f} after the first "
+          f"(first batch in hand to last step done); in-train validation: "
+          f"{val_line.split('INFO ')[-1]}; "
+          f"checkpoint, drop list ({len(drop) // 3} frames), val/ scalars "
+          f"written; the second run resumed from epoch 0 and took no step; "
+          f"process wall {runs[0]:.1f} s and {runs[1]:.1f} s", flush=True)
+    return {"steps": CLI_STEPS, "s_per_step_logged": s_step,
+            "s_per_step_after_first": s_after, "process_wall_s": runs}
+
+
+def dataset_phase(main, train):
+    """The host side on a synthetic SemanticKITTI tree: loader timings,
+    the val CLI's function in process, the train CLI as a subprocess."""
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_kitti_",
+                                     dir=os.path.join(REPO, "build")) as work:
+        t0 = time.perf_counter()
+        seqs = write_tree(work)
+        print(f"dataset phase: synthetic tree {DATA_FRAMES} frames of "
+              f"{RAW_POINTS} points written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        loader = loader_timings(seqs)
+        val = val_cli_phase(seqs, work)
+        print(f"val CLI StreamMOS_seg bf16, {POINTS} points, "
+              f"{val['frames']} frames of sequence 08, after the first: "
+              f"eval_step {val['eval_step_ms']:.3f} ms/frame (CUDA events; "
+              f"first frame {val['eval_step_ms_first']:.3f}), host wall "
+              f"{val['host_wall_ms_per_frame']:.3f} ms/frame (load to "
+              f"written .label) vs the main path's in-memory "
+              f"{main['ms_per_frame']:.3f} ms/frame; moving_iou "
+              f"{val['moving_iou']:.4f}; launches {val['launches']}",
+              flush=True)
+        cli = train_cli_phase(seqs, work)
+        print(f"train CLI {cli['s_per_step_after_first']:.4f} s/step after "
+              f"the first vs the train phase's in-memory "
+              f"{train['StreamMOS']['s_per_step']:.4f} s/step after 2 warm-up "
+              f"steps (StreamMOS, bs1, {TRAIN_POINTS} points)", flush=True)
+    return {"raw_points": RAW_POINTS, "frames": DATA_FRAMES, "loader": loader,
+            "val_cli": val, "train_cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -786,6 +1053,7 @@ def main() -> int:
     small_agreement_phase(dev)
     train = train_phase(dev)
     agreement = train_agreement(dev)
+    host = dataset_phase(main, train)
 
     kernel["launches"] = main["launches"]["fused_header_tta"]
     kernel["launches_per_frame"] = kernel["launches"] / FRAMES
@@ -794,6 +1062,7 @@ def main() -> int:
     for k in (kernel, *scatters):
         k["launches_training_path"] = sum(
             t["launches"][k["name"]] for t in train.values())
+        k["launches_cli_path"] = host["val_cli"]["launches"][k["name"]]
     print(json.dumps({"kernels": [kernel, *scatters],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
@@ -803,7 +1072,8 @@ def main() -> int:
                                 "windows": TRAIN_WINDOWS, "batch": 1,
                                 "dtype": "bfloat16",
                                 "steps_timed": TRAIN_STEPS, **train,
-                                "card_vs_cpu": agreement}}),
+                                "card_vs_cpu": agreement},
+                      "host": host}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,5 @@
-"""SemanticKITTI label taxonomy and the class weights of the 'wce' loss.
+"""SemanticKITTI label taxonomy, label-file decoding and the class weights
+of the 'wce' loss.
 
 A numpy copy of the metadata of `streammos_tpu/data/semantic_kitti.py`
 (importing that module would run `streammos_tpu/__init__.py`, which imports
@@ -7,11 +8,13 @@ jax): raw semantic label -> {0 unlabeled, 1 static, 2 moving}
 (``BF_LEARNING_MAP``, stage 2), the labels written back for a submission
 (``LEARNING_MAP_INV``), the sequence splits, and the per-raw-class point
 frequencies of the train split that `content_class_weights` turns into
-loss weights.
+loss weights. Raw labels are 32-bit: low 16 bits semantic class, high 16
+bits instance id (`split_label`); `relabel` maps them through a lookup
+table (`label_lut`). Numpy only: the dataset workers import this module.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 
@@ -76,3 +79,30 @@ def content_class_weights(mapping=None, class_num: int = 3) -> np.ndarray:
     w = 1.0 / (content + 0.001)
     w[0] = 0.0
     return w
+
+
+def label_lut(mapping: Mapping[int, int], size: int = 260 + 100) -> np.ndarray:
+    """Lookup table for vectorized relabeling (+100 headroom for unknown
+    labels, which map to 0)."""
+    lut = np.zeros(size, dtype=np.int32)
+    for k, v in mapping.items():
+        lut[k] = v
+    return lut
+
+
+# the tables of the module's own maps, made once
+_LUTS: Dict[int, np.ndarray] = {id(m): label_lut(m) for m in
+                                (LEARNING_MAP, BF_LEARNING_MAP,
+                                 LEARNING_MAP_INV)}
+
+
+def relabel(labels: np.ndarray, mapping: Mapping[int, int]) -> np.ndarray:
+    lut = _LUTS.get(id(mapping))
+    if lut is None:
+        lut = label_lut(mapping)
+    return lut[labels]
+
+
+def split_label(raw: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """32-bit KITTI label -> (semantic, instance), int32."""
+    return (raw & 0xFFFF).astype(np.int32), (raw >> 16).astype(np.int32)

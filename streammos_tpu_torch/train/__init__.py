@@ -1,5 +1,6 @@
 from streammos_tpu_torch.train.checkpoint import (graft_params, latest_epoch,
-                                                 restore, save)
+                                                 load_model_state, restore,
+                                                 save)
 from streammos_tpu_torch.train.optim import (Optimizer, TSEnsemble,
                                              apply_updates, build_optimizer,
                                              build_schedule, freeze_mask,
@@ -21,6 +22,7 @@ __all__ = [
     "global_norm",
     "graft_params",
     "latest_epoch",
+    "load_model_state",
     "make_eval_step",
     "make_train_step",
     "restore",

@@ -44,6 +44,14 @@ def restore(ckpt_dir: str, epoch: int, state):
     return state
 
 
+def load_model_state(ckpt_dir: str, epoch: int) -> Dict[str, torch.Tensor]:
+    """The model's state dict of epoch `epoch`, on the CPU (for an eval
+    model, or for grafting a stage-1 checkpoint into stage 2)."""
+    blob = torch.load(os.path.join(_path(ckpt_dir, epoch), STATE_FILE),
+                      map_location="cpu", weights_only=True)
+    return blob["model"]
+
+
 def latest_epoch(ckpt_dir: str) -> Optional[int]:
     if not os.path.isdir(ckpt_dir):
         return None

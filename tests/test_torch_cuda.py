@@ -12,6 +12,9 @@ against the plain version run in float32 on the same bfloat16 inputs (the
 kernel rounds its output to bfloat16). The scatter kernels are bit-exact against their plain versions
 and `impl="auto"`, forward and backward: a max does not depend on order.
 """
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -252,3 +255,58 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
 
     worst = chip_smoke.train_agreement(cuda)
     assert set(worst) == {"stage 1", "stage 2"}
+
+
+@pytest.mark.cuda
+def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
+    """`train.evaluate.stream_eval` over a synthetic two-sequence tree
+    (StreamMOS_tiny, float32, random weights from a seed) on the card: one
+    fused-header launch a frame, no scatter-kernel launch, one `.label` a
+    frame; the metric within 1e-3 of the same run on the CPU, and at least
+    99.5% of the label-file points equal to it (float32 sums in another
+    order flip near-ties)."""
+    import dataclasses
+    import logging
+
+    from streammos_tpu_torch import serve
+    from streammos_tpu_torch.config import get_config
+    from streammos_tpu_torch.data.dataset import EvalDataset
+    from streammos_tpu_torch.train import evaluate
+    # by path: an installed package named `tests` may shadow this directory
+    spec = importlib.util.spec_from_file_location(
+        "synthetic_kitti", os.path.join(os.path.dirname(__file__),
+                                        "synthetic_kitti.py"))
+    synthetic = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic)
+    make_sequence = synthetic.make_sequence
+
+    seqs = tmp_path / "sequences"
+    for seq, seed in (("00", 0), ("08", 1)):
+        make_sequence(str(seqs), seq, n_frames=4, n_points=3000, seed=seed)
+    cfg = get_config("StreamMOS_tiny")
+    cfg = dataclasses.replace(cfg, val=dataclasses.replace(
+        cfg.val, seq_dir=str(seqs), frame_point_num=4096))
+    results, labels = {}, {}
+    for dev in ("cpu", cuda):
+        model = serve.build_model(cfg, device=dev, seed=0)
+        ds = EvalDataset(cfg.val, seq_ids=[0, 8])
+        root = tmp_path / str(dev)
+        t_fh.fused_header_tta.launches = 0
+        t_sorted.sorted_scatter_max.launches = 0
+        t_vmem.scatter_max_vmem.launches = 0
+        results[str(dev)] = evaluate.stream_eval(
+            cfg, cfg.val, model, with_refine=True, with_labels=True,
+            logger=logging.getLogger("test"), dataset=ds, save_root=str(root))
+        if dev != "cpu":
+            assert t_fh.fused_header_tta.launches == len(ds) == 8
+            assert t_sorted.sorted_scatter_max.launches == 0
+            assert t_vmem.scatter_max_vmem.launches == 0
+        labels[str(dev)] = np.concatenate([
+            np.fromfile(root / s / "predictions" / f"{i:06d}.label",
+                        dtype=np.uint32)
+            for s in ("00", "08") for i in range(4)])
+    a, b = results["cpu"], results[str(cuda)]
+    assert a.keys() == b.keys()
+    assert all(abs(a[k] - b[k]) <= 1e-3 for k in a), (a, b)
+    assert labels["cpu"].shape == labels[str(cuda)].shape == (8 * 3000,)
+    assert (labels["cpu"] == labels[str(cuda)]).mean() >= 0.995

@@ -37,5 +37,32 @@ def test_port_imports_no_jax():
                  "ops.fused_header", "ops.voxel_pool", "ops.pallas_scatter",
                  "ops.pallas_scatter_vmem", "nn.encoder",
                  "models.stream_mos", "losses", "data.semantic_kitti",
-                 "train.optim", "train.trainer", "train.checkpoint"):
+                 "train.optim", "train.trainer", "train.checkpoint",
+                 "host_geometry", "native.api", "native.build",
+                 "data.augment", "data.copy_paste", "data.dataset",
+                 "data.droplist", "data.loader", "metrics", "parallel",
+                 "utils.ioueval", "utils.logging", "train.evaluate",
+                 "tools.val", "tools.train"):
         assert f"streammos_tpu_torch.{name}" in report["modules"]
+
+
+WORKER_PROBE = r"""
+import json, sys
+import streammos_tpu_torch.data.dataset, streammos_tpu_torch.data.loader
+import streammos_tpu_torch.data.copy_paste, streammos_tpu_torch.data.droplist
+import streammos_tpu_torch.tools.train, streammos_tpu_torch.tools.val
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def test_worker_modules_import_no_torch():
+    """What a spawned `SampleWorkerPool` worker imports (the datasets, and
+    a CLI module as the parent's main) pulls in neither torch nor jax."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", WORKER_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    import json
+
+    top = json.loads(res.stdout.strip().splitlines()[-1])
+    assert not set(top) & {"torch", "jax", "jaxlib", "streammos_tpu"}, top
