@@ -22,8 +22,14 @@ result line):
      after (the full grid must fail `fits_vmem` and raise); both held
      bit-exactly against `impl="auto"`, each kernel bit-exactly against its
      plain version on its own inputs, the sorted kernel also on signed
-     values; kernel, plain version and library call (`scatter_reduce_`, the
-     "auto" body) timed at each site beside the bound;
+     values; at each site the skew (rows in the densest cell and in the
+     densest 16-cell tile) and the launch shape each kernel's library
+     reports (chunks, levels, copies, warps); kernel, plain version and
+     library call (`scatter_reduce_`, the "auto" body) timed eagerly (`ms`),
+     kernel and library call also replayed from a CUDA graph (`device_ms`),
+     beside the bound; then full-size adversarial inputs (160k
+     rows in one cell, signed; runs of exactly 64 rows, signed), each kernel
+     bit-exact against its plain version there and timed;
   5. the main path: `serve.stream_eval`, the streaming TTA eval of
      StreamMOS_seg (bfloat16, random weights from a seed) over one sequence
      of range-skewed frames of 160k points x T=3, memory fresh on the first
@@ -274,6 +280,23 @@ def scatter_sites(cfg, dev):
     ]
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call of `fn` replayed from a CUDA graph: the
+    card's time for its launches without the host's cost of issuing them
+    (the eager `time_ms` of a small call measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and builds outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
 def scatter_library(rows, ids, cells: int, include_self: bool):
     """The library call: one `scatter_reduce_(..., "amax")` into a zero
     grid with a sentinel row (the impl="auto" body)."""
@@ -284,27 +307,47 @@ def scatter_library(rows, ids, cells: int, include_self: bool):
     return grid[:-1]
 
 
-def site_row(s, ms, plain_ms, library_ms, impl, err, id_reads, **extra):
-    """One site's numbers; the bound is the larger of the bytes the function
-    moves (the rows of the valid points and `id_reads` int32 ids read once,
-    grid written once: rows of points outside the grid are never read) over
-    the memory rate and its maxima (one a valid row element) over the
-    CUDA-core rate."""
+def scatter_bound(valid_rows: int, C: int, itemsize: int, id_reads: int,
+                  grid_bytes: int):
+    """The larger of the bytes the function moves (the valid rows and
+    `id_reads` int32 ids read once, the grid written once) over the memory
+    rate and its maxima (one a valid row element) over the CUDA-core rate;
+    and which of the two it is, and the bytes."""
+    nbytes = valid_rows * C * itemsize + id_reads * 4 + grid_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = valid_rows * C / F32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms
+            else "operations", nbytes)
+
+
+def kernel_times(kernel, library, plain):
+    """Kernel, library call and plain version each called eagerly (`ms`,
+    `library_ms`, `plain_ms`: what a caller's loop sees, host included, as
+    for every kernel of the `kernels` line), and the kernel and the library
+    call also replayed from a CUDA graph (`device_ms`, `library_device_ms`:
+    the card's time alone)."""
+    return dict(ms=time_ms(kernel, 20), device_ms=graph_ms(kernel, 20),
+                library_ms=time_ms(library, 20),
+                library_device_ms=graph_ms(library, 20),
+                plain_ms=time_ms(plain, 3, warmup=1))
+
+
+def site_row(s, times, impl, err, id_reads, **extra):
+    """One site's numbers: its times beside the bound, the entry point's
+    eager time beside impl="auto"'s, the rows and the grid."""
     from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
 
     feat, inds, args, grid = s["feat"], s["inds"], s["args"], s["auto"]
     B, N, C = feat.shape
-    nbytes = (s["n_valid"] * C * feat.element_size() + id_reads * 4
-              + grid.numel() * grid.element_size())
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = s["n_valid"] * C / F32_FLOP_PER_S * 1e3
+    bound_ms, bound_by, nbytes = scatter_bound(
+        s["n_valid"], C, feat.element_size(), id_reads,
+        grid.numel() * grid.element_size())
     return dict(
         site=s["name"], call=s["where"], rows=[B * N, C],
-        valid_rows=s["n_valid"],
-        grid=list(grid.shape[:-1]), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        mb=nbytes / 1e6,
+        valid_rows=s["n_valid"], densest_cell_rows=s["dense_cell"],
+        densest_tile16_rows=s["dense_tile"],
+        grid=list(grid.shape[:-1]), max_abs_err=err, **times,
+        bound_ms=bound_ms, bound_by=bound_by, mb=nbytes / 1e6,
         entry_ms=time_ms(lambda: voxel_max_pool(feat, inds, *args, impl=impl),
                          20),
         auto_ms=time_ms(lambda: voxel_max_pool(feat, inds, *args), 20),
@@ -342,45 +385,114 @@ def sorted_site(s, gen):
     check(torch.equal(lib.reshape(s["auto"].shape), s["auto"]),
           "library call != auto")
     del got, want, signed, lib
-    return site_row(
-        s, time_ms(lambda: ps.sorted_scatter_max(rows_sorted, ids_sorted,
-                                                 cells), 20),
-        time_ms(lambda: ps.sorted_scatter_max_reference(
-            rows_sorted, ids_sorted, cells), 3, warmup=1),
-        time_ms(lambda: scatter_library(rows_sorted, ids_sorted, cells,
-                                        False), 20),
-        "pallas", err, id_reads=s["n_valid"])  # the tiles hold no sentinel
+    plan = ps.launch_plan(B * N, cells, C, feat.element_size())
+    times = kernel_times(
+        lambda: ps.sorted_scatter_max(rows_sorted, ids_sorted, cells),
+        lambda: scatter_library(rows_sorted, ids_sorted, cells, False),
+        lambda: ps.sorted_scatter_max_reference(rows_sorted, ids_sorted,
+                                                cells))
+    return site_row(s, times, "pallas", err,
+                    id_reads=s["n_valid"],  # sentinel rows: ids only
+                    chunks=plan["chunks"],
+                    rows_per_chunk=plan["rows_per_chunk"], levels=plan["levels"],
+                    warps=-(-plan["threads"] // 32))
 
 
 def copies_site(s):
-    """The K-copy kernel at one cascade site, on the per-batch int32 ids
+    """The one-grid kernel at one cascade site, on the per-batch int32 ids
     `voxel_max_pool(impl="vmem")` passes: bit-exact against its plain
     version and against impl="auto" through the entry point."""
     from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
 
     feat, n = s["feat"], s["n"]
-    C = feat.shape[-1]
+    B, N, C = feat.shape
     ids = s["flat"].to(torch.int32)
     check(torch.equal(s["vmem"], s["auto"]), f"vmem != auto at {s['name']}")
     got = pv.scatter_max_vmem(feat, ids, n)
     want = pv.scatter_max_vmem_reference(feat, ids, n)
-    check(torch.equal(got, want), f"copy kernel != plain at {s['name']}")
+    check(torch.equal(got, want), f"grid kernel != plain at {s['name']}")
     err = max_abs_err(got, want)
     del got, want
-    return site_row(
-        s, time_ms(lambda: pv.scatter_max_vmem(feat, ids, n), 20),
-        time_ms(lambda: pv.scatter_max_vmem_reference(feat, ids, n), 3,
-                warmup=1),
-        time_ms(lambda: scatter_library(feat.reshape(-1, C), s["glob"], n,
-                                        True), 20),
-        "vmem", err, id_reads=ids.numel(),  # every id, to drop the invalid
-        copies=pv._num_copies(pv._cells_pad(n), C, feat.element_size()))
+    times = kernel_times(
+        lambda: pv.scatter_max_vmem(feat, ids, n),
+        lambda: scatter_library(feat.reshape(-1, C), s["glob"], n, True),
+        lambda: pv.scatter_max_vmem_reference(feat, ids, n))
+    plan = pv.launch_plan(B * N, C, feat.element_size())
+    return site_row(s, times, "vmem", err,
+                    id_reads=ids.numel(),  # every id, to drop the invalid
+                    copies=plan["copies"],
+                    jax_copies=pv._num_copies(pv._cells_pad(n), C,
+                                              feat.element_size()),
+                    points_per_thread=plan["points_per_thread"],
+                    warps=-(-plan["threads"] // 32))
+
+
+def adversarial_phase(dev):
+    """Both kernels at full size on the inputs that broke the old designs,
+    160k bf16 rows of 256 channels: for the sorted kernel all in one cell
+    (the first 128 channels negative, so the cell's maximum is negative
+    there) and in runs of exactly 64 rows (every other cell negative), for
+    the grid kernel all in one cell of a stage-1 BEV grid (non-negative);
+    each bit-exact against its plain version, and timed beside its bound."""
+    from streammos_tpu_torch.ops import pallas_scatter as ps
+    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    C = 256
+    rows = torch.randn(POINTS, C, generator=gen, device=dev)
+    out = {"pallas": [], "vmem": []}
+    one_cell = torch.zeros(POINTS, dtype=torch.int32, device=dev)
+    runs = torch.arange(POINTS, device=dev, dtype=torch.int32) // 64
+    cases = [("one cell", one_cell, 2, torch.cat(
+        [-rows[:, :128].abs(), rows[:, 128:]], 1)),
+        ("runs of 64", runs, int(runs[-1]) + 2,
+         torch.where((runs % 2 == 0)[:, None], -rows.abs(), rows))]
+    for name, ids, cells, x in cases:
+        x = x.to(torch.bfloat16)
+        got = ps.sorted_scatter_max(x, ids, cells)
+        want = ps.sorted_scatter_max_reference(x, ids, cells)
+        check(torch.equal(got, want), f"sorted kernel != plain, {name}")
+        check(bool((want < 0).any()), f"{name}: no negative maximum")
+        times = kernel_times(
+            lambda: ps.sorted_scatter_max(x, ids, cells),
+            lambda: scatter_library(x, ids, cells, False),
+            lambda: ps.sorted_scatter_max_reference(x, ids, cells))
+        bound = scatter_bound(POINTS, C, 2, POINTS, cells * C * 2)
+        out["pallas"].append(dict(case=name, rows=[POINTS, C], cells=cells,
+                                  max_abs_err=max_abs_err(got, want),
+                                  **times, bound_ms=bound[0]))
+    cells = 128 * 128
+    x = rows.abs().to(torch.bfloat16)[None]
+    ids = torch.full((1, POINTS), 4321, dtype=torch.int32, device=dev)
+    got = pv.scatter_max_vmem(x, ids, cells)
+    want = pv.scatter_max_vmem_reference(x, ids, cells)
+    check(torch.equal(got, want), "grid kernel != plain, one cell")
+    times = kernel_times(
+        lambda: pv.scatter_max_vmem(x, ids, cells),
+        lambda: scatter_library(x[0], ids[0], cells, True),
+        lambda: pv.scatter_max_vmem_reference(x, ids, cells))
+    bound = scatter_bound(POINTS, C, 2, POINTS, cells * C * 2)
+    out["vmem"].append(dict(case="one cell", rows=[POINTS, C], cells=cells,
+                            max_abs_err=max_abs_err(got, want), **times,
+                            bound_ms=bound[0]))
+    for impl, name in (("pallas", "sorted_scatter_max"),
+                       ("vmem", "scatter_max_vmem")):
+        for r in out[impl]:
+            print(f"{name} adversarial, {r['case']}, {POINTS} x {C} bf16 -> "
+                  f"{r['cells']} cells: bit-exact vs plain; kernel "
+                  f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+                  f"(device {r['library_device_ms']:.4f}), bound "
+                  f"{r['bound_ms']:.4f}", flush=True)
+    return out
 
 
 def scatter_phase(dev, cfg):
     """`voxel_max_pool(impl="pallas"|"vmem")` at the five sites of a frame:
-    the path run (counted), then the checks and the timings (not counted).
-    Returns the two kernels' entries of the `kernels` line."""
+    the path run (counted), then the checks and the timings (not counted),
+    then the adversarial inputs. Returns the two kernels' entries of the
+    `kernels` line."""
+    from streammos_tpu_torch import build
     from streammos_tpu_torch.ops import pallas_scatter as ps
     from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
     from streammos_tpu_torch.ops.voxel_pool import _cell_ids, voxel_max_pool
@@ -426,43 +538,69 @@ def scatter_phase(dev, cfg):
         off = torch.arange(B, device=dev)[:, None] * s["n"]
         s["glob"] = torch.where(valid, s["flat"] + off, B * s["n"]).to(
             torch.int32).reshape(-1)
+        # the skew: rows in the densest cell, and in the densest tile of 16
+        # cells (the unit of work of the earlier tile-per-thread design)
+        occupied = s["glob"][s["glob"] < B * s["n"]].long()
+        s["dense_cell"] = int(torch.bincount(occupied).max())
+        s["dense_tile"] = int(torch.bincount(occupied // 16).max())
         rows["pallas"].append(sorted_site(s, gen))
         if s["vmem"] is not None:
             rows["vmem"].append(copies_site(s))
         s.clear()
+    adversarial = adversarial_phase(dev)
 
     entries = []
-    for impl, name, src, repl, fn in (
-            ("pallas", "sorted_scatter_max", "sorted_scatter.cu",
+    for impl, name, lib, repl, fn in (
+            ("pallas", "sorted_scatter_max", "sorted_scatter",
              "streammos_tpu/ops/pallas_scatter.py:49",
              "kernel from _make_kernel (pallas_call at :195, in "
              "sorted_scatter_max)"),
-            ("vmem", "scatter_max_vmem", "scatter_copies.cu",
+            ("vmem", "scatter_max_vmem", "scatter_grid",
              "streammos_tpu/ops/pallas_scatter_vmem.py:75",
              "_kernel (pallas_call at :157, in scatter_max_vmem)")):
+        ptxas = build.ptxas_lines(lib)
+        check(any("registers" in line for line in ptxas),
+              f"no ptxas register lines for {lib}")
         for r in rows[impl]:
+            shape = (f"{r['chunks']} chunks of {r['rows_per_chunk']} rows, "
+                     f"{r['levels']} levels"
+                     if impl == "pallas" else f"copies {r['copies']} (JAX's "
+                     f"K {r['jax_copies']}), {r['points_per_thread']} points "
+                     f"a thread")
             print(f"{name} at {r['site']} ({r['call']}), {r['rows'][0]} x "
-                  f"{r['rows'][1]} bf16 ({r['valid_rows']} rows in the grid) "
-                  f"-> {r['grid']}: bit-exact vs plain "
-                  f"and impl='auto'; kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['mb']:.1f} MB); "
+                  f"{r['rows'][1]} bf16 ({r['valid_rows']} rows in the grid; "
+                  f"densest cell {r['densest_cell_rows']} rows, densest "
+                  f"16-cell tile {r['densest_tile16_rows']}) -> {r['grid']}: "
+                  f"bit-exact vs plain and impl='auto'; {shape}, "
+                  f"{r['warps']} warps; kernel {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+                  f"library {r['library_ms']:.4f} ms (device "
+                  f"{r['library_device_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                  f"ms ({r['mb']:.1f} MB), bound / device time "
+                  f"{r['bound_ms'] / r['device_ms']:.3f}; "
                   f"voxel_max_pool impl={impl!r} {r['entry_ms']:.4f} ms vs "
                   f"'auto' {r['auto_ms']:.4f} ms", flush=True)
         largest = max(rows[impl], key=lambda r: r["mb"])
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"streammos_tpu_torch/csrc/{src}",
+            "source": f"streammos_tpu_torch/csrc/{lib}.cu",
             "replaces": repl, "replaces_function": fn, "ok": True,
-            "max_abs_err": max(r["max_abs_err"] for r in rows[impl]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows[impl]
+                               + adversarial[impl]),
             **{k: largest[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+                                        "bound_by", "library_ms", "device_ms",
+                                        "library_device_ms")},
+            "device_ms_note": "device_ms and library_device_ms: the call "
+                              "replayed from a CUDA graph; ms, plain_ms and "
+                              "library_ms: the call issued from Python",
             "library_call": "torch.zeros + scatter_reduce_(amax) with a "
                             "sentinel row (the impl='auto' body)",
             "site": largest["site"], "launches": launches[impl],
             "launches_in": f"voxel_max_pool(impl={impl!r}) at the "
                            f"{len(rows[impl])} sites of a frame",
-            "sites": rows[impl], "dtype": "bfloat16"})
+            "ptxas": ptxas,
+            "sites": rows[impl], "adversarial": adversarial[impl],
+            "dtype": "bfloat16"})
     return entries
 
 

@@ -5,7 +5,9 @@ plain C interface (no PyTorch headers, so a build takes seconds), loaded with
 ctypes. Libraries go to `build/kernels/` at the repository root, named by a
 hash of the source and the flags, so an edited source builds anew and an
 unchanged one is reused. Nothing builds at import: the first call of a
-kernel's wrapper builds it, as does `load_library(name)`.
+kernel's wrapper builds it, as does `load_library(name)`. Beside each
+library, `lib<name>_<hash>.ptxas.txt` keeps ptxas's register, shared memory
+and spill lines of its build (`ptxas_lines`).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -25,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES: Dict[str, str] = {
     "fused_header": "csrc/fused_header.cu",
     "sorted_scatter": "csrc/sorted_scatter.cu",
-    "scatter_copies": "csrc/scatter_copies.cu",
+    "scatter_grid": "csrc/scatter_grid.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,14 +53,26 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
+def ptxas_path(name: str) -> Path:
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def ptxas_lines(name: str) -> List[str]:
+    """ptxas's register, shared memory and spill lines of the kernel's
+    build, each after the function they belong to; builds it first if it is
+    not built yet."""
+    load_library(name)
+    return ptxas_path(name).read_text().splitlines()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The built library of one kernel, compiling it first if it is not
     built yet (and then printing ptxas's register and spill counts, each
-    after the kernel they belong to).
+    after the kernel they belong to, and keeping them beside the library).
     Raises if nvcc fails."""
     path = library_path(name)
-    if not path.exists():
+    if not (path.exists() and ptxas_path(name).exists()):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -67,9 +81,14 @@ def load_library(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"building kernel {name} failed (nvcc exit "
                                f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        for line in (proc.stdout + proc.stderr).splitlines():
-            if any(w in line for w in ("Function properties", "registers",
-                                       "spill")):
-                print(f"{name}: {line.strip()}", flush=True)
-        os.replace(tmp, path)
+        lines = [line.strip() for line in
+                 (proc.stdout + proc.stderr).splitlines()
+                 if any(w in line for w in ("Function properties", "registers",
+                                            "spill"))]
+        for line in lines:
+            print(f"{name}: {line}", flush=True)
+        tmp_txt = tmp.with_suffix(".ptxas.tmp")
+        tmp_txt.write_text("".join(f"{line}\n" for line in lines))
+        os.replace(tmp_txt, ptxas_path(name))  # before the library: a built
+        os.replace(tmp, path)                  # library always has its lines
     return ctypes.CDLL(str(path))

@@ -8,25 +8,21 @@ version `sorted_scatter_max_reference` for CPU tensors. There is no other
 path: a CUDA tensor the kernel cannot take raises.
 
 The front end stays outside the kernel, as in JAX: `scatter_max_pallas`
-sorts the ids, gathers the rows into that order, and `sorted_scatter_max`
-finds each tile's row range with `searchsorted`. The kernel starts from
-the sorted rows. Empty cells are 0; an occupied cell holds the max of its
-rows, negative or not. Ids outside [0, n_cells) are dropped (n_cells is
-the sentinel of invalid points).
+sorts the ids and gathers the rows into that order. The kernel starts from
+the sorted rows and cuts them into chunks of rows, so its work follows the
+row count whatever the skew (the design is in the source's header). Empty
+cells are 0; an occupied cell holds the max of its rows, negative or not.
+Ids outside [0, n_cells) are dropped (n_cells is the sentinel of invalid
+points).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from streammos_tpu_torch.build import load_library
-
-# Cells a tile. One tile is walked by the threads of one row of channels;
-# 16 cells gives the smallest in-model grid (the stage-1 range view, 8192
-# cells) 512 tiles, enough to fill 132 SMs (the TPU kernel's 1024 would give
-# 8). Any cell count works: the last tile may be partial.
-TILE_CELLS = 16
 
 
 def sorted_scatter_max_reference(feats_sorted: torch.Tensor,
@@ -58,8 +54,40 @@ def _check(feats_sorted, ids_sorted, n_cells) -> None:
         raise ValueError(f"need feats (P, C) and ids (P,), got "
                          f"{tuple(feats_sorted.shape)} and "
                          f"{tuple(ids_sorted.shape)}")
-    if not 1 <= n_cells < 2 ** 31 - TILE_CELLS:
+    if not 1 <= n_cells < 2 ** 31:
         raise ValueError(f"n_cells {n_cells} out of the int32 range")
+    if feats_sorted.shape[0] >= 2 ** 31:
+        raise ValueError(f"{feats_sorted.shape[0]} rows: out of the int32 "
+                         f"range")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("sorted_scatter")
+    lib.streammos_sorted_scatter_plan.restype = ctypes.c_longlong
+    lib.streammos_sorted_scatter_plan.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn = lib.streammos_sorted_scatter_max
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p])
+    return lib
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(P: int, n_cells: int, C: int, itemsize: int) -> dict:
+    """The kernel's launch shape for P rows of C channels into n_cells
+    cells: levels, the first level's chunks, threads (16-byte path) and
+    rows a chunk, and the workspace bytes. Builds the kernel if it is not
+    built yet."""
+    info = (ctypes.c_int * 4)()
+    nbytes = _library().streammos_sorted_scatter_plan(P, n_cells, C, itemsize,
+                                                      info)
+    if nbytes < 0:
+        raise ValueError(f"no plan for {P} rows x {C} into {n_cells} cells")
+    return {"levels": info[0], "chunks": info[1], "threads": info[2],
+            "rows_per_chunk": info[3], "workspace_bytes": nbytes}
 
 
 def sorted_scatter_max(feats_sorted: torch.Tensor, ids_sorted: torch.Tensor,
@@ -84,19 +112,15 @@ def sorted_scatter_max(feats_sorted: torch.Tensor, ids_sorted: torch.Tensor,
         raise ValueError("feats_sorted and ids_sorted must be contiguous")
     P, C = feats_sorted.shape
     dev = feats_sorted.device
-    n_tiles = -(-n_cells // TILE_CELLS)
-    bounds = (torch.arange(n_tiles + 1, device=dev, dtype=torch.int32)
-              * TILE_CELLS).clamp_(max=n_cells)
-    starts = torch.searchsorted(ids_sorted, bounds).to(torch.int32)
+    plan = launch_plan(P, n_cells, C, feats_sorted.element_size())
+    work = torch.empty(plan["workspace_bytes"], dtype=torch.uint8, device=dev)
     out = torch.empty((n_cells, C), dtype=feats_sorted.dtype, device=dev)
-    fn = load_library("sorted_scatter").streammos_sorted_scatter_max
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(feats_sorted.data_ptr(), ids_sorted.data_ptr(),
-                 starts.data_ptr(), out.data_ptr(), n_cells, C, TILE_CELLS,
-                 int(feats_sorted.dtype == torch.bfloat16), stream)
+        err = _library().streammos_sorted_scatter_max(
+            feats_sorted.data_ptr(), ids_sorted.data_ptr(), P, out.data_ptr(),
+            n_cells, C, work.data_ptr(),
+            int(feats_sorted.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"sorted scatter kernel launch failed: CUDA error "
                            f"{err}")

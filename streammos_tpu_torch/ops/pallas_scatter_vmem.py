@@ -1,25 +1,27 @@
-"""Scatter-max of non-negative rows into K interleaved copies of a zeroed
-grid: `voxel_max_pool(impl="vmem")`.
+"""Scatter-max of non-negative rows into a zeroed grid:
+`voxel_max_pool(impl="vmem")`.
 
 Counterpart of `streammos_tpu/ops/pallas_scatter_vmem.py` (the module keeps
 that name so a reader finds the counterpart). `scatter_max_vmem` launches
-the hand-written CUDA kernel `csrc/scatter_copies.cu` for CUDA tensors (it
+the hand-written CUDA kernel `csrc/scatter_grid.cu` for CUDA tensors (it
 replaces the TPU kernel `_kernel` there) and runs the plain version
 `scatter_max_vmem_reference` for CPU tensors. There is no other path: a
 CUDA tensor the kernel cannot take raises.
 
-Point i of a batch updates copy i mod K, and one max merges the copies.
-Semantics are `voxel_max_pool(..., nonneg=True)`: a zero grid the points
-max into; ids outside [0, num_cells), of either sign, go to the sentinel
-row and are dropped.
+The kernel maxes the rows straight into the one output grid with atomics
+that the card's L2 resolves; the TPU kernel's K copies of the grid are not
+kept. Semantics are `voxel_max_pool(..., nonneg=True)`: a zero grid the
+points max into; ids outside [0, num_cells), of either sign, go to the
+sentinel row and are dropped.
 
 `fits_vmem` and `_num_copies` are JAX's, constants included, so both
-packages accept and reject the same shapes and use the same K; the
-constants describe the TPU's VMEM budget, not the card.
+packages accept and reject the same shapes; the constants describe the
+TPU's VMEM budget, not the card, and K sizes no buffer here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -62,6 +64,30 @@ def scatter_max_vmem_reference(feat: torch.Tensor, ids: torch.Tensor,
     return out[:, :num_cells]
 
 
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("scatter_grid")
+    lib.streammos_scatter_grid_plan.restype = ctypes.c_int
+    lib.streammos_scatter_grid_plan.argtypes = [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = lib.streammos_scatter_max_grid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return lib
+
+
+def launch_plan(points: int, C: int, itemsize: int) -> dict:
+    """The kernel's launch shape for `points` (B * N) points of C channels:
+    the grid copies it keeps, the points a thread takes and the threads of
+    its update pass. Builds the kernel if it is not built yet."""
+    info = (ctypes.c_longlong * 3)()
+    if _library().streammos_scatter_grid_plan(points, C, itemsize, info) != 0:
+        raise ValueError(f"no plan for {points} points x {C} channels of "
+                         f"{itemsize} bytes")
+    return {"copies": info[0], "points_per_thread": info[1],
+            "threads": info[2]}
+
+
 def scatter_max_vmem(feat: torch.Tensor, ids: torch.Tensor,
                      num_cells: int) -> torch.Tensor:
     """Scatter-max (B, N, C) non-negative rows into (B, num_cells, C).
@@ -77,33 +103,28 @@ def scatter_max_vmem(feat: torch.Tensor, ids: torch.Tensor,
     if not fits_vmem(num_cells, C, feat.element_size()):
         raise ValueError(f"grid ({num_cells} cells x {C} ch, itemsize "
                          f"{feat.element_size()}) fails fits_vmem: needs "
-                         f"C % 128 == 0 and >= 2 grid copies")
+                         f"C % 128 == 0 and >= 2 of the TPU kernel's grid copies")
     if feat.device.type == "cpu":
         return scatter_max_vmem_reference(feat, ids, num_cells)
     if not feat.is_cuda or ids.device != feat.device:
-        raise ValueError(f"no copy scatter for devices {feat.device}, "
+        raise ValueError(f"no grid scatter for devices {feat.device}, "
                          f"{ids.device}")
     if feat.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"copy scatter kernel takes float32 or bfloat16, "
+        raise TypeError(f"grid scatter kernel takes float32 or bfloat16, "
                         f"got {feat.dtype}")
     if ids.dtype != torch.int32:
-        raise TypeError(f"copy scatter kernel takes int32 ids, got {ids.dtype}")
+        raise TypeError(f"grid scatter kernel takes int32 ids, got {ids.dtype}")
     if not (feat.is_contiguous() and ids.is_contiguous()):
         raise ValueError("feat and ids must be contiguous")
-    K = _num_copies(_cells_pad(num_cells), C, feat.element_size())
     dev = feat.device
-    copies = torch.empty((B, K, num_cells, C), dtype=feat.dtype, device=dev)
     out = torch.empty((B, num_cells, C), dtype=feat.dtype, device=dev)
-    fn = load_library("scatter_copies").streammos_scatter_max_copies
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(feat.data_ptr(), ids.data_ptr(), copies.data_ptr(),
-                 out.data_ptr(), B, N, num_cells, C, K,
-                 int(feat.dtype == torch.bfloat16), stream)
+        err = _library().streammos_scatter_max_grid(
+            feat.data_ptr(), ids.data_ptr(), out.data_ptr(), B, N, num_cells,
+            C, int(feat.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"copy scatter kernel launch failed: CUDA error "
+        raise RuntimeError(f"grid scatter kernel launch failed: CUDA error "
                            f"{err}")
     scatter_max_vmem.launches += 1
     return out

@@ -10,8 +10,8 @@ the cell ids, then one of the same `impl`s as the JAX op:
   `csrc/sorted_scatter.cu`) over the batch-global cell ids. Unlike JAX, which
   takes the XLA path when B*num_cells is not a multiple of its 1024-cell
   tile, the kernel takes any cell count.
-- "vmem": the K-copy scatter (`ops/pallas_scatter_vmem.py`, CUDA kernel
-  `csrc/scatter_copies.cu`) over the per-batch cell ids. As in JAX it needs
+- "vmem": the one-grid scatter (`ops/pallas_scatter_vmem.py`, CUDA kernel
+  `csrc/scatter_grid.cu`) over the per-batch cell ids. As in JAX it needs
   ``nonneg=True`` and a grid `fits_vmem` accepts, else ValueError. Unlike
   JAX, which raises off the TPU, a CPU tensor runs the plain version.
 
@@ -164,7 +164,7 @@ def voxel_max_pool(feat: torch.Tensor, inds: torch.Tensor,
     negative max is kept.
 
     impl: "auto" / "xla" (plain torch), "pallas" (sorted scatter kernel) or
-    "vmem" (K-copy scatter kernel, needs nonneg and `fits_vmem`); see the
+    "vmem" (one-grid scatter kernel, needs nonneg and `fits_vmem`); see the
     module docstring.
     """
     if impl not in IMPLS:
@@ -174,7 +174,7 @@ def voxel_max_pool(feat: torch.Tensor, inds: torch.Tensor,
                                        phase_split, row_pad)
     if impl == "vmem" and not nonneg:
         raise ValueError("impl='vmem' requires nonneg=True (the kernel "
-                         "max-es into zeroed grid copies)")
+                         "max-es into a zeroed grid)")
     out = _VoxelMaxPool.apply(feat, flat, valid, num_cells, nonneg, impl)
     return out.reshape((B,) + grid_shape(out_size, phase_split, row_pad) + (C,))
 

@@ -13,7 +13,12 @@ epoch, `log_train.txt`, `scalars.jsonl` (loss and learning rate every
 the drop list `train_split_dynamic_pointnumber.txt` when the config drops
 mostly static frames and `--drop-list` is not given. Resumes from the
 tag's latest checkpoint. Stage 2 grafts the stage-1 checkpoint
-(`--checkpoint`/`--ckpt-epoch`) and trains only the refine head. Samples
+(`--checkpoint`/`--ckpt-epoch`) and trains only the refine head. The graft
+takes every entry of stage 1's model dict whose key and shape stage 2 has,
+the BN running statistics included, as the original torch trainer's
+``load_state_dict(strict=False)`` does. This deliberately differs from the
+JAX CLI (`tools/train.py` there grafts ``params`` only, so its stage 2
+starts from fresh statistics, mean 0 and variance 1). Samples
 are assembled by `SampleWorkerPool` (the config's `num_workers`) behind a
 `PrefetchLoader`. Runs on the CUDA card unless `--device cpu`.
 """

@@ -99,7 +99,9 @@ def build_train_model(cfg: Config, stage2: bool = False, *, device="cuda",
     ``cfg.seed``); then every entry of `state_dict` (reference key names)
     whose key and shape the model has replaces the drawn one, as the
     reference's ``load_state_dict(strict=False)`` grafts a stage-1
-    checkpoint into stage 2."""
+    checkpoint into stage 2. That carries the BN running statistics too,
+    where the JAX CLI grafts ``params`` only and starts stage 2 from fresh
+    statistics: a deliberate difference."""
     device = resolve_device(device)
     model = StreamMOSNet(cfg.model, with_refine=stage2)
     init_random_(model, torch.Generator().manual_seed(

@@ -25,6 +25,19 @@ from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
 from streammos_tpu_torch.ops import voxel_pool as t_vp
 
 
+def _by_path(name):
+    """A numpy helper module of this directory, loaded by its path: an
+    installed package named `tests` may shadow the directory."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(__file__), f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cases = _by_path("scatter_cases")
+
+
 def _header_inputs(rng, T=3, C=8, Cout=16, Bt=1, Hh=16, Wh=128):
     """A non-negative phase grid (the scatter of post-ReLU features) with
     empty padding rows, kernels, and affines whose pool scale may be
@@ -165,7 +178,7 @@ def _sorted_rows(rng, R, C, n_cells, dev, dtype):
 @pytest.mark.parametrize("n_cells,C", [(1000, 8), (37, 5), (4100, 256),
                                        (17, 128)])
 def test_sorted_scatter_kernel_matches_plain(cuda, dtype, n_cells, C):
-    """Partial last tiles (no cell count here is a multiple of the tile),
+    """Cell counts of no particular multiple, a partial last chunk of rows,
     the 16-byte and the one-channel paths."""
     feats, ids = _sorted_rows(np.random.default_rng(n_cells), 5000, C,
                               n_cells, cuda, getattr(torch, dtype))
@@ -183,8 +196,8 @@ def test_sorted_scatter_kernel_matches_plain(cuda, dtype, n_cells, C):
 @pytest.mark.parametrize("B,N,cells,C", [(1, 3000, 640, 128),
                                          (2, 2048, 1000, 256)])
 def test_copy_scatter_kernel_matches_plain(cuda, dtype, B, N, cells, C):
-    """Non-negative rows, ids out of range of either sign, cells not a
-    multiple of 8, two batches."""
+    """The one-grid kernel: non-negative rows, ids out of range of either
+    sign, cells not a multiple of 8, two batches."""
     rng = np.random.default_rng(cells)
     feat = torch.from_numpy(np.maximum(rng.normal(size=(B, N, C)), 0).astype(
         np.float32)).to(cuda, getattr(torch, dtype))
@@ -195,6 +208,88 @@ def test_copy_scatter_kernel_matches_plain(cuda, dtype, B, N, cells, C):
     torch.cuda.synchronize()
     assert t_vmem.scatter_max_vmem.launches == before + 1
     assert torch.equal(got, t_vmem.scatter_max_vmem_reference(feat, ids, cells))
+
+
+def _adversarial_rows(kind, C, signed, rows):
+    """A case of `tests/scatter_cases.py` at a size that crosses hundreds of
+    the sorted kernel's 64-row chunks (200k rows in the one cell)."""
+    rng = np.random.default_rng(cases.KINDS.index(kind))
+    ids, n_cells = cases.scatter_case(
+        kind, rng, 200_000 if kind == "one_cell" else rows)
+    return ids, cases.scatter_rows(rng, ids, C, signed), n_cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [5, 8, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_sorted_scatter_kernel_adversarial(cuda, kind, dtype, C):
+    """Signed rows (every even cell's maximum negative) in the distributions
+    that broke the tile-per-thread design; C = 5 takes the one-channel
+    path. Bit-exact against the plain version; one launch."""
+    ids, rows, n_cells = _adversarial_rows(kind, C, True, 50_000)
+    ids, rows = cases.sort_by_id(ids, rows)
+    dt = getattr(torch, dtype)
+    feats = torch.from_numpy(rows).to(cuda, dt)
+    tids = torch.from_numpy(ids).to(cuda)
+    before = t_sorted.sorted_scatter_max.launches
+    got = t_sorted.sorted_scatter_max(feats, tids, n_cells)
+    torch.cuda.synchronize()
+    assert t_sorted.sorted_scatter_max.launches == before + 1
+    want = t_sorted.sorted_scatter_max_reference(feats, tids, n_cells)
+    assert torch.equal(got, want)
+    assert (want[-1] == 0).all()
+    assert kind == "sentinel" or (want < 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", cases.VMEM_KINDS)
+def test_grid_scatter_kernel_adversarial(cuda, kind, dtype, C):
+    """Non-negative rows in the same distributions, unsorted, over two
+    batches (the second a permutation of the first; the batch offset is in
+    the address), 20k rows where the grid has a cell a row (`fits_vmem`):
+    bit-exact against the plain version; one launch."""
+    ids, rows, cells = _adversarial_rows(kind, C, False, 20_000)
+    perm = np.random.default_rng(1).permutation(len(ids))
+    dt = getattr(torch, dtype)
+    feat = torch.from_numpy(np.stack([rows, rows[perm]])).to(cuda, dt)
+    tids = torch.from_numpy(np.stack([ids, ids[perm]])).to(cuda)
+    before = t_vmem.scatter_max_vmem.launches
+    got = t_vmem.scatter_max_vmem(feat, tids, cells)
+    torch.cuda.synchronize()
+    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert torch.equal(got, t_vmem.scatter_max_vmem_reference(feat, tids, cells))
+    assert (got[:, -1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_kernels_edge_sizes(cuda, dtype):
+    """No rows at all (both kernels, the sorted one on both channel paths),
+    and a grid of one cell with negative rows and sentinels: bit-exact
+    against the plain versions, one launch a call."""
+    dt = getattr(torch, dtype)
+    for P, n_cells, C in ((0, 1, 8), (0, 64, 5), (300, 1, 128), (300, 1, 5)):
+        rows = -torch.rand(P, C, generator=torch.Generator().manual_seed(P))
+        ids = torch.zeros(P, dtype=torch.int32)
+        ids[P // 2:] = n_cells  # sentinel rows, sorted to the end
+        feats, tids = rows.to(cuda, dt), ids.to(cuda)
+        before = t_sorted.sorted_scatter_max.launches
+        got = t_sorted.sorted_scatter_max(feats, tids, n_cells)
+        torch.cuda.synchronize()
+        assert t_sorted.sorted_scatter_max.launches == before + 1
+        want = t_sorted.sorted_scatter_max_reference(feats, tids, n_cells)
+        assert torch.equal(got, want), (P, n_cells, C)
+        assert P == 0 or (got[0] < 0).all()
+    feat = torch.empty((2, 0, 128), dtype=dt, device=cuda)
+    before = t_vmem.scatter_max_vmem.launches
+    got = t_vmem.scatter_max_vmem(
+        feat, torch.empty((2, 0), dtype=torch.int32, device=cuda), 640)
+    torch.cuda.synchronize()
+    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert got.shape == (2, 640, 128) and (got == 0).all()
 
 
 @pytest.mark.cuda
@@ -272,14 +367,7 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
     from streammos_tpu_torch.config import get_config
     from streammos_tpu_torch.data.dataset import EvalDataset
     from streammos_tpu_torch.train import evaluate
-    # by path: an installed package named `tests` may shadow this directory
-    spec = importlib.util.spec_from_file_location(
-        "synthetic_kitti", os.path.join(os.path.dirname(__file__),
-                                        "synthetic_kitti.py"))
-    synthetic = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(synthetic)
-    make_sequence = synthetic.make_sequence
-
+    make_sequence = _by_path("synthetic_kitti").make_sequence
     seqs = tmp_path / "sequences"
     for seq, seed in (("00", 0), ("08", 1)):
         make_sequence(str(seqs), seq, n_frames=4, n_points=3000, seed=seed)

@@ -28,6 +28,8 @@ from streammos_tpu.ops import voxel_pool as j_vp
 from streammos_tpu_torch.ops import pallas_scatter as t_sorted
 from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
 from streammos_tpu_torch.ops import voxel_pool as t_vp
+from tests.scatter_cases import (KINDS, VMEM_KINDS, scatter_case,
+                                 scatter_rows, sort_by_id)
 from tests.test_torch_common import use_few_threads
 
 use_few_threads()
@@ -171,6 +173,76 @@ def test_sorted_scatter_reference_drops_out_of_range_ids():
     ids = torch.tensor([-3, 1, 1, 3, 4], dtype=torch.int32)
     got = t_sorted.sorted_scatter_max_reference(feats, ids, 3)
     assert got.flatten().tolist() == [0.0, -1.0, 0.0]
+
+
+# --- the id distributions that stress the kernels ------------------------
+
+ADV_ROWS = 2048  # 32 chunks of the sorted kernel's 64 rows
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_sorted_scatter_adversarial_matches_jax(kind, dtype):
+    """`tests/scatter_cases.py`'s distributions, rows signed (every even
+    cell's maximum negative): the port's sorted scatter (front end and
+    sorted entry) equals JAX `voxel_max_pool(impl="xla")` on the same cells
+    as 1-D grid coordinates, and `voxel_max_pool_ref`."""
+    rng = np.random.default_rng(KINDS.index(kind))
+    ids, n_cells = scatter_case(kind, rng, ADV_ROWS)
+    feat = scatter_rows(rng, ids, 6, signed=True)
+    inds = (ids.astype(np.float32) + 0.5)[None, :, None]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(j_vp.voxel_max_pool(
+        jnp.asarray(feat[None]).astype(jdt), jnp.asarray(inds), (n_cells,),
+        (1.0,), "xla").astype(jnp.float32))[0]
+    np.testing.assert_array_equal(
+        want, j_vp.voxel_max_pool_ref(feat[None], inds, (n_cells,), (1.0,))[0])
+    assert (want[-1] == 0).all()
+    if kind != "sentinel":
+        assert (want < 0).any()
+
+    got = t_sorted.scatter_max_pallas(_t(feat).to(tdt), _t(ids), n_cells)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    sids, srows = sort_by_id(ids, feat)
+    direct = t_sorted.sorted_scatter_max(_t(srows).to(tdt), _t(sids), n_cells)
+    np.testing.assert_array_equal(direct.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sorted_scatter_one_cell_grid_matches_jax(dtype):
+    """A grid of one cell: negative rows in it, the rest sentinel rows (the
+    sentinel id is 1 here); the cell keeps its negative maximum, as JAX's."""
+    rng = np.random.default_rng(7)
+    ids = np.where(rng.uniform(size=ADV_ROWS) < 0.5, 0, 1).astype(np.int32)
+    feat = -scatter_rows(rng, ids, 6, signed=False) - 1 / 64
+    inds = (ids.astype(np.float32) + 0.5)[None, :, None]
+    want = np.asarray(j_vp.voxel_max_pool(
+        jnp.asarray(feat[None]).astype(getattr(jnp, dtype)), jnp.asarray(inds),
+        (1,), (1.0,), "xla").astype(jnp.float32))[0]
+    assert want.shape == (1, 6) and (want < 0).all()
+    tdt = getattr(torch, dtype)
+    got = t_sorted.scatter_max_pallas(_t(feat).to(tdt), _t(ids), 1)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", VMEM_KINDS)
+def test_scatter_max_vmem_adversarial_matches_jax(kind, dtype):
+    """The same distributions, non-negative rows, two batches (the batch's
+    offset is in the address), each batch its own permutation: the port's
+    plain version equals JAX's `scatter_max_vmem` in interpret mode."""
+    rng = np.random.default_rng(10 + KINDS.index(kind))
+    ids, cells = scatter_case(kind, rng, ADV_ROWS)
+    ids = np.stack([ids, rng.permutation(ids)])
+    feat = np.stack([scatter_rows(rng, ids[b], 128, signed=False)
+                     for b in range(2)])
+    jfeat = jnp.asarray(feat).astype(getattr(jnp, dtype))
+    want = np.asarray(j_vmem.scatter_max_vmem(jfeat, jnp.asarray(ids), cells,
+                                              True).astype(jnp.float32))
+    got = t_vmem.scatter_max_vmem(_t(feat).to(getattr(torch, dtype)), _t(ids),
+                                  cells)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (want[:, -1] == 0).all()
 
 
 # --- voxel_max_pool: impl dispatch ----------------------------------------

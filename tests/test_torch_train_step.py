@@ -240,6 +240,35 @@ def test_graft_stage1_into_stage2():
                        drawn["pred_layer.pred_layer.0.weight"])
 
 
+def test_graft_carries_bn_running_statistics():
+    """Stage 2 built from a stage-1 model's dict starts from stage 1's BN
+    running statistics (the original trainer's `load_state_dict(strict=
+    False)`; the JAX CLI grafts `params` only and starts from mean 0,
+    variance 1)."""
+    cfg = get_config("StreamMOS_tiny")
+    stage1 = t_train.build_train_model(cfg, device="cpu", seed=0)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for k, v in stage1.state_dict().items():
+            if k.endswith("running_mean"):
+                v.copy_(torch.randn(v.shape, generator=gen))
+            elif k.endswith("running_var"):
+                v.copy_(torch.rand(v.shape, generator=gen) + 0.5)
+    stats1 = {k: v for k, v in stage1.state_dict().items()
+              if k.endswith(("running_mean", "running_var"))}
+    grafted = t_train.build_train_model(cfg, stage2=True, device="cpu",
+                                        seed=1,
+                                        state_dict=stage1.state_dict())
+    got = grafted.state_dict()
+    backbone = {k for k in got if k.endswith(("running_mean", "running_var"))
+                and not k.startswith("refine.")}
+    assert backbone and backbone == set(stats1)
+    for k in backbone:
+        assert torch.equal(got[k], stats1[k]), k
+        assert not torch.equal(got[k], torch.zeros_like(got[k])) and \
+            not torch.equal(got[k], torch.ones_like(got[k])), k
+
+
 def test_build_train_model_needs_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
