@@ -67,18 +67,33 @@ result line):
      points, 4 steps, one epoch, validation over sequence 08 after it),
      then again, which must resume and take no step; checks: the
      checkpoint, finite losses and a `val/` scalar in `scalars.jsonl`, the
-     drop list; its logged s/step beside the train phase's.
+     drop list; its logged s/step beside the train phase's;
+ 10. the long-term-memory voting over the val CLI's output of sequence 08:
+     the voting CLI with --instance, the numpy backend as a subprocess
+     (spawned pool) and the device backend in this process on the card,
+     refined files byte-equal; then one production-size vote (9 synthetic
+     125k-point scans at (512, 512, 30), a case with argmax ties), numpy
+     against CUDA bit for bit, each timed (host wall a frame, CUDA events
+     around the device vote, its device time under the profiler), with the
+     local-map points and the counters' bytes; launch counts zeroed just
+     before and read just after (the voting path launches no hand kernel);
+     which backend was faster and what `--vote auto` resolves to;
+ 11. the dress rehearsal, `python -m streammos_tpu_torch.tools.dress_rehearsal`
+     at a cut depth (stage 1, stage 2, val, voting, each the port's CLI on
+     the card): its JSON lines passed through, its summary ok and one
+     refined label file a val frame.
 
 TF32 is off for the whole run, so float32 convolutions and matmuls on the
 card are full float32. Prints one {"kernels": [...], "train": {...},
-"host": {...}} line, the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}.
+"host": {...}, "voting": {...}, "rehearsal": {...}} line, the card's name
+and power limit, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,6 +115,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DATA_FRAMES = {"08": 12, "00": 8}  # dataset phase: sequence -> frames
 RAW_POINTS = 125_000  # points a synthetic scan (an HDL-64 scan's size)
 CLI_STEPS = 4
+VOTE_SCANS = 9  # a production vote: 8 history scans and the current one
+VOTE_REPS = 3
 
 # published peaks of the H100 SXM part at 700 W (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -1129,35 +1146,258 @@ def train_cli_phase(seqs: str, work: str):
             "s_per_step_after_first": s_after, "process_wall_s": runs}
 
 
-def dataset_phase(main, train):
-    """The host side on a synthetic SemanticKITTI tree: loader timings,
-    the val CLI's function in process, the train CLI as a subprocess."""
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="smoke_kitti_",
-                                     dir=os.path.join(REPO, "build")) as work:
-        t0 = time.perf_counter()
-        seqs = write_tree(work)
-        print(f"dataset phase: synthetic tree {DATA_FRAMES} frames of "
-              f"{RAW_POINTS} points written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        loader = loader_timings(seqs)
-        val = val_cli_phase(seqs, work)
-        print(f"val CLI StreamMOS_seg bf16, {POINTS} points, "
-              f"{val['frames']} frames of sequence 08, after the first: "
-              f"eval_step {val['eval_step_ms']:.3f} ms/frame (CUDA events; "
-              f"first frame {val['eval_step_ms_first']:.3f}), host wall "
-              f"{val['host_wall_ms_per_frame']:.3f} ms/frame (load to "
-              f"written .label) vs the main path's in-memory "
-              f"{main['ms_per_frame']:.3f} ms/frame; moving_iou "
-              f"{val['moving_iou']:.4f}; launches {val['launches']}",
-              flush=True)
-        cli = train_cli_phase(seqs, work)
-        print(f"train CLI {cli['s_per_step_after_first']:.4f} s/step after "
-              f"the first vs the train phase's in-memory "
-              f"{train['StreamMOS']['s_per_step']:.4f} s/step after 2 warm-up "
-              f"steps (StreamMOS, bs1, {TRAIN_POINTS} points)", flush=True)
+def dataset_phase(work: str, main, train):
+    """The host side on a synthetic SemanticKITTI tree under `work`: loader
+    timings, the val CLI's function in process, the train CLI as a
+    subprocess. Returns the results and the tree's `sequences` dir."""
+    t0 = time.perf_counter()
+    seqs = write_tree(work)
+    print(f"dataset phase: synthetic tree {DATA_FRAMES} frames of "
+          f"{RAW_POINTS} points written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    loader = loader_timings(seqs)
+    val = val_cli_phase(seqs, work)
+    print(f"val CLI StreamMOS_seg bf16, {POINTS} points, "
+          f"{val['frames']} frames of sequence 08, after the first: "
+          f"eval_step {val['eval_step_ms']:.3f} ms/frame (CUDA events; "
+          f"first frame {val['eval_step_ms_first']:.3f}), host wall "
+          f"{val['host_wall_ms_per_frame']:.3f} ms/frame (load to "
+          f"written .label) vs the main path's in-memory "
+          f"{main['ms_per_frame']:.3f} ms/frame; moving_iou "
+          f"{val['moving_iou']:.4f}; launches {val['launches']}",
+          flush=True)
+    cli = train_cli_phase(seqs, work)
+    print(f"train CLI {cli['s_per_step_after_first']:.4f} s/step after "
+          f"the first vs the train phase's in-memory "
+          f"{train['StreamMOS']['s_per_step']:.4f} s/step after 2 warm-up "
+          f"steps (StreamMOS, bs1, {TRAIN_POINTS} points)", flush=True)
     return {"raw_points": RAW_POINTS, "frames": DATA_FRAMES, "loader": loader,
-            "val_cli": val, "train_cli": cli}
+            "val_cli": val, "train_cli": cli}, seqs
+
+
+VOTED = re.compile(r"seq 08: voted (\d+) frames in ([0-9.]+) s, the first "
+                   r"after ([0-9.]+) s")
+
+
+def voting_cli_runs(seqs: str, work: str):
+    """The voting CLI with --instance over the val CLI's output of
+    sequence 08 (StreamMOS_seg, tag smoke), once a backend: numpy as a user
+    runs it (a subprocess, its pool spawned), the device backend in this
+    process on the card (so that the kernels' counts see it). The refined
+    files of both must be byte-equal, and the IoU lines equal. Returns each
+    backend's wall a frame, pool start-up included, as the CLI reports it,
+    and the frames."""
+    import contextlib
+    import io
+
+    from streammos_tpu_torch.tools import voting as voting_cli
+
+    argv = ["--config", "StreamMOS_seg", "--tag", "smoke", "--data", seqs,
+            "--instance"]
+    refined = os.path.join(work, "experiments", "StreamMOS_seg", "smoke",
+                           "refine_val_results")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "streammos_tpu_torch.tools.voting", *argv,
+         "--vote", "numpy"], cwd=work, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=600)
+    process_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"voting CLI (numpy) exit {proc.returncode}:"
+          f"\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    outs = {"numpy": proc.stdout}
+    os.rename(refined, refined + "_numpy")
+
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(printed):
+            voting_cli.main(argv + ["--vote", "device"])
+    finally:
+        os.chdir(cwd)
+    outs["device"] = printed.getvalue()
+
+    sub = os.path.join("sequences", "08", "predictions")
+    names = sorted(os.listdir(os.path.join(refined, sub)))
+    frames = DATA_FRAMES["08"]
+    check(names == [f"{i:06d}.label" for i in range(frames)],
+          f"voting wrote {len(names)} files for {frames} frames")
+    for name in names:
+        with open(os.path.join(refined, sub, name), "rb") as a, \
+                open(os.path.join(refined + "_numpy", sub, name), "rb") as b:
+            check(a.read() == b.read(), f"refined {name}: numpy != device")
+    iou = {k: v.strip().splitlines()[-1] for k, v in outs.items()}
+    check(iou["numpy"] == iou["device"] and "moving_iou: " in iou["numpy"],
+          f"voting IoU lines differ: {iou}")
+    s_frame, after_first = {}, {}
+    for k, v in outs.items():
+        m = VOTED.search(v)
+        check(m is not None and int(m.group(1)) == frames,
+              f"voting ({k}) printed no timing line")
+        wall, first = float(m.group(2)), float(m.group(3))
+        s_frame[k] = wall / frames
+        after_first[k] = (wall - first) / (frames - 1)
+    return {"frames": frames, "s_per_frame": s_frame,
+            "s_per_frame_after_first": after_first,
+            "numpy_process_wall_s": process_wall, "iou": iou["numpy"]}
+
+
+def vote_case(voxel, root: str):
+    """A production-size vote: VOTE_SCANS synthetic scans of RAW_POINTS
+    points (`tools/synthetic.py`, written under `root`), the history
+    ego-aligned with the last, current one as the CLI aligns it;
+    predictions drawn from the seed, and the current frame's first 60k
+    points given a second vote of another class, so that many cells tie.
+    Returns the vote's arguments and the number of tie cells."""
+    from streammos_tpu_torch import host_geometry
+    from streammos_tpu_torch.postprocess.voting import _linear_cells, crop_mask
+    from streammos_tpu_torch.tools.synthetic import make_big_sequence
+
+    make_big_sequence(root, "00", VOTE_SCANS, RAW_POINTS, seed=SEED + 9)
+    seq = os.path.join(root, "00")
+    poses = host_geometry.parse_poses(
+        os.path.join(seq, "poses.txt"),
+        host_geometry.parse_calibration(os.path.join(seq, "calib.txt")))
+    inv = np.linalg.inv(poses[-1])
+    scans = [host_geometry.np_transform(np.fromfile(
+        os.path.join(seq, "velodyne", f"{i:06d}.bin"), np.float32
+    ).reshape(-1, 4), inv @ poses[i])[:, :3] for i in range(VOTE_SCANS)]
+    rng = np.random.default_rng(SEED + 9)
+    preds = [rng.integers(0, 3, RAW_POINTS) for _ in scans]
+    cur, cur_pred = scans[-1], preds[-1]
+    local = np.concatenate(scans + [cur[:60_000]])
+    local_pred = np.concatenate(preds + [(cur_pred[:60_000] + 1) % 3])
+    keep, ckeep = crop_mask(local, voxel), crop_mask(cur, voxel)
+    args = (local[keep], local_pred[keep], cur[ckeep], cur_pred[ckeep], voxel)
+    lin, _ = _linear_cells(args[0], voxel)
+    counts = np.bincount(lin * 3 + args[1])
+    counts = np.pad(counts, (0, (-counts.size) % 3)).reshape(-1, 3)
+    top = counts.max(axis=1, keepdims=True)
+    ties = int(((counts == top).sum(axis=1) >= 2)[top[:, 0] > 0].sum())
+    return args, ties
+
+
+def voting_phase(seqs: str, work: str):
+    """The long-term-memory voting on the card: the voting CLI over the val
+    CLI's output (both backends, byte-equal), then one production-size vote
+    (`vote_case`: numpy against CUDA, bit-equal, on a case with ties) timed: host wall a
+    frame of each backend, CUDA events around the device vote and its
+    device time under the profiler, the local-map points and the counters'
+    bytes. Launch counts zeroed just before, read just after: the voting
+    path launches no hand kernel. Prints which backend was faster and what
+    `--vote auto` resolves to."""
+    from streammos_tpu_torch.config import get_config
+    from streammos_tpu_torch.postprocess.voting import (voxel_vote,
+                                                        voxel_vote_device)
+    from streammos_tpu_torch.tools.voting import resolve_vote_backend
+
+    counted = counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+    cli = voting_cli_runs(seqs, work)
+
+    voxel = get_config("StreamMOS_seg").model.voxel
+    args, ties = vote_case(voxel, os.path.join(work, "vote"))
+    check(ties > 0, "the production vote case has no tie")
+    n_cells = int(np.prod(voxel.bev_shape))
+    host = {"numpy": [], "device": []}
+    events = []
+    want = voxel_vote(*args)
+    got = voxel_vote_device(*args, device="cuda")  # warm-up
+    check(np.array_equal(got, want), "production vote: numpy != CUDA")
+    for _ in range(VOTE_REPS):
+        t0 = time.perf_counter()
+        want = voxel_vote(*args)
+        host["numpy"].append(time.perf_counter() - t0)
+        pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        pair[0].record()
+        got = voxel_vote_device(*args, device="cuda")
+        pair[1].record()
+        torch.cuda.synchronize()
+        host["device"].append(time.perf_counter() - t0)
+        events.append(pair[0].elapsed_time(pair[1]))
+        check(np.array_equal(got, want), "production vote: numpy != CUDA")
+    busy = device_busy(lambda: voxel_vote_device(*args, device="cuda"))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(not any(launches.values()), f"voting path launches {launches}")
+
+    prod = {"scans": VOTE_SCANS, "local_points": int(args[0].shape[0]),
+            "current_points": int(args[2].shape[0]), "tie_cells": ties,
+            "counter_bytes": n_cells * 3 * 8,
+            "numpy_ms": float(np.mean(host["numpy"]) * 1e3),
+            "device_ms": float(np.mean(host["device"]) * 1e3),
+            "device_event_ms": float(np.mean(events)),
+            "device_busy_ms": busy["device_ms"],
+            "device_busy_launches": busy["launches"]}
+    auto = "device" if resolve_vote_backend("auto") else "numpy"
+    steady = cli["s_per_frame_after_first"]
+    faster = min(steady, key=steady.get)
+    print(f"voting CLI StreamMOS_seg --instance, {cli['frames']} frames of "
+          f"sequence 08 ({RAW_POINTS}-point scans, the val CLI's labels), 8 "
+          f"workers, host wall: numpy {cli['s_per_frame']['numpy']:.4f} "
+          f"s/frame with the pool's start-up, {steady['numpy']:.4f} after "
+          f"the first frame; device {cli['s_per_frame']['device']:.4f}, "
+          f"{steady['device']:.4f} after the first (numpy process wall "
+          f"{cli['numpy_process_wall_s']:.1f} s); refined files byte-equal; "
+          f"{cli['iou']}", flush=True)
+    print(f"voting production vote ({VOTE_SCANS} scans of {RAW_POINTS} "
+          f"points, grid {voxel.bev_shape}, 3 classes): local map "
+          f"{prod['local_points']} points, {prod['current_points']} current, "
+          f"{ties} tie cells; counters {prod['counter_bytes']} bytes (int64); "
+          f"numpy {prod['numpy_ms']:.1f} ms/frame, device "
+          f"{prod['device_ms']:.1f} ms/frame host wall ({VOTE_REPS} reps), "
+          f"{prod['device_event_ms']:.3f} ms CUDA events around the call, "
+          f"{busy['device_ms']:.3f} ms of device time in {busy['launches']} "
+          f"launches ({busy['top']}); numpy == CUDA bit for bit; launches "
+          f"{launches}", flush=True)
+    print(f"voting: faster backend on this card (CLI s/frame after the "
+          f"first): {faster}; --vote auto resolves to {auto}", flush=True)
+    return {"cli": cli, "production": prod, "launches": launches,
+            "faster": faster, "auto": auto}
+
+
+REHEARSAL = ["--steps", "4", "--steps2", "2", "--frames", "12",
+             "--val-frames", "8"]
+
+
+def rehearsal_phase():
+    """`python -m streammos_tpu_torch.tools.dress_rehearsal` at a cut depth
+    (REHEARSAL) as a subprocess, in a directory under `build/`: stage 1,
+    stage 2, val, voting, each the port's CLI on the card. Its JSON lines
+    are passed through; its summary must say ok, and the refined labels
+    number the val frames."""
+    with tempfile.TemporaryDirectory(prefix="smoke_rehearsal_",
+                                     dir=os.path.join(REPO, "build")) as root:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "streammos_tpu_torch.tools.dress_rehearsal",
+             *REHEARSAL, "--root", root], cwd=root,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+        for line in lines:
+            print(line, flush=True)
+        check(proc.returncode == 0, f"dress rehearsal exit {proc.returncode}:"
+              f"\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        summary = json.loads(lines[-1])
+        val_frames = int(REHEARSAL[REHEARSAL.index("--val-frames") + 1])
+        check(summary.get("metric") == "dress_rehearsal"
+              and summary.get("ok") is True, f"rehearsal summary {summary}")
+        refined = summary["artifacts"]["refined_labels"]
+        check(summary["refined_frames"] == val_frames
+              and len(os.listdir(refined)) == val_frames,
+              f"rehearsal refined {summary['refined_frames']} of "
+              f"{val_frames} frames")
+        phases = {d["phase"]: d["wall_s"] for d in map(json.loads, lines[:-1])}
+    print(f"dress rehearsal ({' '.join(REHEARSAL)}): ok, phases {phases} s, "
+          f"process wall {wall:.1f} s", flush=True)
+    return {"args": REHEARSAL, "phases": phases,
+            "total_wall_s": summary["total_wall_s"], "process_wall_s": wall,
+            "record_tail": summary["record_tail"],
+            "voting_tail": summary["voting_tail"]}
 
 
 def main() -> int:
@@ -1191,7 +1431,12 @@ def main() -> int:
     small_agreement_phase(dev)
     train = train_phase(dev)
     agreement = train_agreement(dev)
-    host = dataset_phase(main, train)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke_kitti_",
+                                     dir=os.path.join(REPO, "build")) as work:
+        host, seqs = dataset_phase(work, main, train)
+        voting = voting_phase(seqs, work)
+    rehearsal = rehearsal_phase()
 
     kernel["launches"] = main["launches"]["fused_header_tta"]
     kernel["launches_per_frame"] = kernel["launches"] / FRAMES
@@ -1201,6 +1446,7 @@ def main() -> int:
         k["launches_training_path"] = sum(
             t["launches"][k["name"]] for t in train.values())
         k["launches_cli_path"] = host["val_cli"]["launches"][k["name"]]
+        k["launches_voting_path"] = voting["launches"][k["name"]]
     print(json.dumps({"kernels": [kernel, *scatters],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
@@ -1211,7 +1457,8 @@ def main() -> int:
                                 "dtype": "bfloat16",
                                 "steps_timed": TRAIN_STEPS, **train,
                                 "card_vs_cpu": agreement},
-                      "host": host}),
+                      "host": host, "voting": voting,
+                      "rehearsal": rehearsal}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

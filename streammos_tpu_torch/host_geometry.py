@@ -1,8 +1,10 @@
 """Host-side geometry of the input pipeline, in numpy: the rigid transform
-and range crop of a scan, and the KITTI calibration and pose files.
+and range crop of a scan, its spherical (range-view) projection, and the
+KITTI calibration and pose files.
 
 A copy of `streammos_tpu/geometry.py:np_transform`, `np_filter_mask`,
-`parse_calibration` and `parse_poses` (importing that module imports jax).
+`np_sphere_quantize`, `parse_calibration` and `parse_poses` (importing that
+module imports jax).
 The arithmetic is the same, so the same files give the same arrays bit for
 bit. No torch here: the dataset workers import this module.
 """
@@ -26,6 +28,29 @@ def np_filter_mask(pcds: np.ndarray, range_x, range_y, range_z) -> np.ndarray:
     vy = (pcds[..., 1] >= range_y[0]) & (pcds[..., 1] < range_y[1])
     vz = (pcds[..., 2] >= range_z[0]) & (pcds[..., 2] < range_z[1])
     return vx & vy & vz
+
+
+def np_sphere_quantize(pcds: np.ndarray, phi_range, theta_range, size
+                       ) -> np.ndarray:
+    """Cartesian -> fractional range-view coords (..., 2): row 0 the
+    vertical (theta) coordinate, row 1 the horizontal (phi), both as
+    fractional indices into an (H, W) range image."""
+    H, W = size
+    phi_lo, phi_hi = (phi_range[0] * np.pi / 180.0, phi_range[1] * np.pi / 180.0)
+    th_lo, th_hi = (theta_range[0] * np.pi / 180.0, theta_range[1] * np.pi / 180.0)
+    dphi = (phi_hi - phi_lo) / W
+    dtheta = (th_hi - th_lo) / H
+
+    x = pcds[..., 0]
+    y = pcds[..., 1]
+    z = pcds[..., 2]
+    d = np.sqrt(x * x + y * y + z * z) + 1e-12
+
+    phi = phi_hi - np.arctan2(x, y)
+    phi_quan = phi / dphi
+    theta = th_hi - np.arcsin(z / d)
+    theta_quan = theta / dtheta
+    return np.stack((theta_quan, phi_quan), axis=-1)
 
 
 def _read_3x4(values) -> np.ndarray:

@@ -23,11 +23,20 @@ def _path(ckpt_dir: str, epoch: int) -> str:
 def save(ckpt_dir: str, epoch: int, state) -> str:
     """Write `state` (a `TrainState`) as epoch `epoch`; returns the
     epoch's directory."""
+    return save_model_state(ckpt_dir, epoch, state.model.state_dict(),
+                            state.opt_state, state.step)
+
+
+def save_model_state(ckpt_dir: str, epoch: int,
+                     model_state: Mapping[str, torch.Tensor],
+                     opt_state=None, step: int = 0) -> str:
+    """Write a model's state dict (with an optimizer state and step, or
+    none and 0, as for imported weights) as epoch `epoch`; returns the
+    epoch's directory."""
     path = _path(ckpt_dir, epoch)
     os.makedirs(path, exist_ok=True)
-    torch.save({"model": state.model.state_dict(),
-                "opt_state": state.opt_state, "step": state.step},
-               os.path.join(path, STATE_FILE))
+    torch.save({"model": model_state, "opt_state": opt_state,
+                "step": step}, os.path.join(path, STATE_FILE))
     return path
 
 

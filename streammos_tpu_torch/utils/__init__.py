@@ -1,1 +1,2 @@
-"""Logging, the scalar stream and the confusion-matrix IoU evaluator."""
+"""Logging, the scalar stream, the confusion-matrix IoU evaluator, 3-D box
+helpers and the offline visualization."""

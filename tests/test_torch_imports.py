@@ -1,6 +1,6 @@
-"""No module of the port imports jax or the JAX package: import every
-module of `streammos_tpu_torch` (and `chip_smoke.py`) in a fresh
-interpreter and inspect `sys.modules`."""
+"""No module of the port imports jax, the JAX package or scikit-learn:
+import every module of `streammos_tpu_torch` (and `chip_smoke.py`) in a
+fresh interpreter and inspect `sys.modules`."""
 import os
 import subprocess
 import sys
@@ -19,7 +19,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "streammos_tpu"))
+                                    "streammos_tpu", "sklearn"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -42,7 +42,11 @@ def test_port_imports_no_jax():
                  "data.augment", "data.copy_paste", "data.dataset",
                  "data.droplist", "data.loader", "metrics", "parallel",
                  "utils.ioueval", "utils.logging", "train.evaluate",
-                 "tools.val", "tools.train"):
+                 "tools.val", "tools.train", "postprocess",
+                 "postprocess.voting", "postprocess.dbscan", "utils.boxes",
+                 "utils.visualize", "tools.voting", "tools.port_weights",
+                 "tools.extract_objects", "tools.make_drop_list",
+                 "tools.synthetic", "tools.dress_rehearsal"):
         assert f"streammos_tpu_torch.{name}" in report["modules"]
 
 
@@ -51,13 +55,15 @@ import json, sys
 import streammos_tpu_torch.data.dataset, streammos_tpu_torch.data.loader
 import streammos_tpu_torch.data.copy_paste, streammos_tpu_torch.data.droplist
 import streammos_tpu_torch.tools.train, streammos_tpu_torch.tools.val
+import streammos_tpu_torch.tools.voting
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
 
 def test_worker_modules_import_no_torch():
-    """What a spawned `SampleWorkerPool` worker imports (the datasets, and
-    a CLI module as the parent's main) pulls in neither torch nor jax."""
+    """What a spawned `SampleWorkerPool` or voting worker imports (the
+    datasets, and a CLI module as the parent's main) pulls in neither torch
+    nor jax."""
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", WORKER_PROBE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
