@@ -81,11 +81,30 @@ result line):
  11. the dress rehearsal, `python -m streammos_tpu_torch.tools.dress_rehearsal`
      at a cut depth (stage 1, stage 2, val, voting, each the port's CLI on
      the card): its JSON lines passed through, its summary ok and one
-     refined label file a val frame.
+     refined label file a val frame;
+ 12. data-parallel, world 1 over NCCL: phase 7's stage-1 step inside a
+     process group of one rank, so every collective of the data-parallel
+     step runs as an NCCL kernel; 2 warm-up and 4 timed steps (CUDA
+     events) beside phase 7's s/step, peak memory, the first loss against
+     phase 7's, launch counts zeroed just before the timed steps and read
+     just after (0 for every hand kernel), and one profiled step: device
+     time and launches, the NCCL kernels' among them;
+ 13. data-parallel, world 2 on the one card over gloo with CUDA tensors,
+     each rank a process of this script (`--dp-rank`): one StreamMOS_tiny
+     float32 step on a bs2 batch split over the ranks, which must equal the
+     one-process step on the joined batch within the CPU tests' tolerances;
+     then StreamMOS bf16 at full width, bs1 a rank, 4 steps, the ranks'
+     parameters bit-equal after every step, host wall s/step; each rank's
+     launch counts (0 for every hand kernel);
+ 14. the unfolded eval step (`make_eval_step`, TTA fan on the batch) of
+     each attention fusion (`fusion_mode` "branch_att", "point_att"):
+     StreamMOS_tiny float32 on the card against the CPU from the same
+     weights, then StreamMOS_seg's width in bf16 at 160k points, timed.
 
 TF32 is off for the whole run, so float32 convolutions and matmuls on the
 card are full float32. Prints one {"kernels": [...], "train": {...},
-"host": {...}, "voting": {...}, "rehearsal": {...}} line, the card's name
+"host": {...}, "voting": {...}, "rehearsal": {...}, "data_parallel":
+{...}, "fusion_eval": {...}} line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -717,14 +736,17 @@ def small_agreement_phase(dev):
           f"diff {worst:.3e} (tolerance 2e-3 + 2e-3*|ref|)", flush=True)
 
 
-def train_windows(cfg, dev, stage2: bool, points: int, seed: int):
-    """S windows of range-skewed scans (S, 1, T, N, 4) and labels drawn
+def train_windows(cfg, dev, stage2: bool, points: int, seed: int,
+                  batch: int = 1):
+    """S windows of range-skewed scans (S, B, T, N, 4) and labels drawn
     from the seed (bf_targets for stage 2), on `dev`."""
     from streammos_tpu_torch.scans import skewed_scan_bank
 
     rng = np.random.default_rng(seed)
-    xyzi = skewed_scan_bank(rng, TRAIN_WINDOWS, cfg.model.seq_num, points)
-    shape = (TRAIN_WINDOWS, 1, points)
+    xyzi = skewed_scan_bank(rng, TRAIN_WINDOWS * batch, cfg.model.seq_num,
+                            points).reshape(TRAIN_WINDOWS, batch,
+                                            cfg.model.seq_num, points, 4)
+    shape = (TRAIN_WINDOWS, batch, points)
     w = {"xyzi": xyzi,
          "targets": rng.integers(0, 3, shape).astype(np.int32)}
     if stage2:
@@ -732,24 +754,44 @@ def train_windows(cfg, dev, stage2: bool, points: int, seed: int):
     return {k: torch.from_numpy(v).to(dev) for k, v in w.items()}
 
 
-def device_busy(fn):
+def device_busy(fn, collectives: bool = False):
     """One call of `fn` under torch.profiler (CUDA activity only): the
     summed device time (ms) and the number of what ran on the card
-    (kernels, copies, fills), and the five costliest by name."""
+    (kernels, copies, fills), and the five costliest by name. With
+    `collectives`, the host activity is traced too, and the process
+    group's collectives (the host ops "nccl:*" / "gloo:*") are counted by
+    kind with the device time of what each launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA]
+    if collectives:
+        acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    evs = [e for e in averages if e.device_type == DeviceType.CUDA]
     check(bool(evs), "the profiler saw no device activity")
     top = sorted(evs, key=lambda e: e.device_time_total, reverse=True)[:5]
-    return {"device_ms": sum(e.device_time_total for e in evs) / 1e3,
-            "launches": sum(e.count for e in evs),
-            "top": [[e.key[:60], e.device_time_total / 1e3, e.count]
-                    for e in top]}
+    out = {"device_ms": sum(e.device_time_total for e in evs) / 1e3,
+           "launches": sum(e.count for e in evs),
+           "top": [[e.key[:60], e.device_time_total / 1e3, e.count]
+                   for e in top]}
+    if collectives:
+        ops = [e for e in averages if e.key.startswith(("nccl:", "gloo:"))]
+        kernels = [e for e in evs if "nccl" in e.key.lower()]
+        out.update({
+            "collective_calls": {e.key: e.count for e in ops},
+            "c10d_calls": {e.key: e.count for e in averages
+                           if e.key.startswith("c10d::")},
+            "collective_device_ms": sum(e.device_time_total
+                                        for e in ops) / 1e3,
+            "nccl_kernel_launches": sum(e.count for e in kernels),
+            "nccl_kernel_ms": sum(e.device_time_total
+                                  for e in kernels) / 1e3})
+    return out
 
 
 def train_setup(cfg, stage2: bool, dev, seed: int):
@@ -931,6 +973,369 @@ def train_agreement(dev):
         worst[name] = {"update_rel_l2": overall, "worst_tensor": tensor_err,
                        "stat_abs": stat_err}
     return worst
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_world1_phase(dev, train):
+    """Stage 1 at full width as the train phase runs it, inside a process
+    group of one rank over NCCL: every collective of the data-parallel
+    step (BN all-reduces, loss gathers, gradient buckets) launches as an
+    NCCL kernel. s/step beside the train phase's; the collectives'
+    launches and device time from one profiled step."""
+    import torch.distributed as dist
+
+    from streammos_tpu_torch import parallel
+    from streammos_tpu_torch.config import get_config
+
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        check(parallel.active() and parallel.process_count() == 1,
+              "a process group of one rank")
+        cfg = get_config("StreamMOS")
+        model, state, step = train_setup(cfg, False, dev, SEED)
+        parallel.replicate_state(state)
+        windows = train_windows(cfg, dev, False, TRAIN_POINTS, SEED + 2)
+        gen = torch.Generator().manual_seed(SEED)
+        losses = []
+        for _ in range(TRAIN_WARMUP):
+            state, metrics = step(state, windows, gen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        counted = counted_kernels()
+        for fn in counted:
+            fn.launches = 0
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(TRAIN_STEPS + 1)]
+        events[0].record()
+        for i in range(TRAIN_STEPS):
+            state, metrics = step(state, windows, gen)
+            losses.append(metrics["loss"])
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy = device_busy(lambda: step(state, windows, gen),
+                           collectives=True)
+    finally:
+        dist.destroy_process_group()
+    s_step = [events[i].elapsed_time(events[i + 1]) / 1e3
+              for i in range(TRAIN_STEPS)]
+    losses = [float(x) for x in losses]
+    ref = train["StreamMOS"]
+    check(all(np.isfinite(losses)), f"DP world 1 losses {losses}")
+    # the first step's loss: same weights and windows as the train phase;
+    # the BN moments come from sums here (bf16 activations)
+    rel = abs(losses[0] - ref["losses"][0]) / abs(ref["losses"][0])
+    check(rel < 2e-2, f"DP world 1 first loss {losses[0]} vs "
+          f"{ref['losses'][0]}")
+    calls = busy["collective_calls"]
+    check(sum(calls.values()) > 0 and all(k.startswith("nccl:")
+                                          for k in calls),
+          f"the profiled step's collectives: {calls}, c10d ops "
+          f"{busy['c10d_calls']}")
+    check(sum(launches.values()) == 0, f"DP path launched {launches}")
+    out = {"world": 1, "backend": "nccl", "config": "StreamMOS",
+           "s_per_step": float(np.mean(s_step)), "s_per_step_each": s_step,
+           "s_per_step_train_phase": ref["s_per_step"],
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "first_loss_rel_diff": rel, "launches": launches,
+           "device_ms_per_step": busy["device_ms"],
+           "device_launches_per_step": busy["launches"],
+           "collective_calls_per_step": calls,
+           "collective_device_ms_per_step": busy["collective_device_ms"],
+           "nccl_kernel_launches_per_step": busy["nccl_kernel_launches"],
+           "nccl_kernel_ms_per_step": busy["nccl_kernel_ms"]}
+    print(f"DP world 1 over NCCL, StreamMOS bf16 {TRAIN_POINTS} points x "
+          f"T={cfg.model.seq_num} x {TRAIN_WINDOWS} windows, bs1: "
+          f"{out['s_per_step']:.4f} s/step mean over {TRAIN_STEPS} (per "
+          f"step " + ", ".join(f"{x:.4f}" for x in s_step)
+          + f") vs {ref['s_per_step']:.4f} without a process group; peak "
+          f"memory {peak_gb:.2f} GB; first loss {losses[0]:.4f} vs "
+          f"{ref['losses'][0]:.4f}; one profiled step: "
+          f"{busy['device_ms']:.2f} ms of device time in {busy['launches']} "
+          f"launches; collectives {calls}, {busy['collective_device_ms']:.3f} "
+          f"ms of device time under them, NCCL kernels "
+          f"{busy['nccl_kernel_launches']} ({busy['nccl_kernel_ms']:.3f} ms; "
+          f"one rank: NCCL copies or skips the data); launches {launches}",
+          flush=True)
+    del model, state, step, windows
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_WORLD = 2
+DP_TINY_POINTS = 1024
+DP_STEPS = 4
+
+
+def dp_tiny_cfg():
+    from streammos_tpu_torch.config import get_config
+
+    cfg = get_config("StreamMOS_tiny")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout_rate=0.0),
+        optimize=dataclasses.replace(cfg.optimize, pct_start=0.0))
+
+
+def flat_params(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def dp_worker(rank: int, addr: str, out_dir: str) -> int:
+    """One rank of the world-2 run on the one card, over gloo with CUDA
+    tensors: StreamMOS_tiny float32, one step on this rank's row of a bs2
+    batch; then StreamMOS bf16 at full width, bs1 a rank, DP_STEPS steps,
+    rank 0's parameters broadcast and compared bit for bit after each."""
+    import torch.distributed as dist
+
+    from streammos_tpu_torch import parallel
+    from streammos_tpu_torch.config import get_config
+    from streammos_tpu_torch.tools.train import dropout_generator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize_distributed(addr, DP_WORLD, rank, backend="gloo",
+                                    device="cuda")
+    dev = parallel.local_device("cuda")
+    torch.cuda.set_device(dev)
+    res = {"rank": rank, "device": str(dev)}
+    counted = counted_kernels()
+    for fn in counted:
+        fn.launches = 0
+
+    cfg = dp_tiny_cfg()
+    model, state, step = train_setup(cfg, False, dev, SEED + 3)
+    parallel.replicate_state(state)
+    w = train_windows(cfg, dev, False, DP_TINY_POINTS, SEED + 4,
+                      batch=DP_WORLD)
+    state, metrics = step(state, {k: v[:, rank:rank + 1]
+                                  for k, v in w.items()})
+    res["tiny"] = {"loss": float(metrics["loss"]),
+                   "grad_norm": float(metrics["grad_norm"]),
+                   "state": {k: v.cpu()
+                             for k, v in model.state_dict().items()}}
+    del model, state, step
+
+    cfg = get_config("StreamMOS")
+    model, state, step = train_setup(cfg, False, dev, SEED)
+    parallel.replicate_state(state)
+    windows = train_windows(cfg, dev, False, TRAIN_POINTS,
+                            SEED + 2 + rank)
+    gen = dropout_generator(SEED)  # as the train CLI seeds each rank
+    s_step, losses, equal = [], [], []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, windows, gen)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        s_step.append(time.perf_counter() - t0)
+        mine = flat_params(model)
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0)
+        equal.append(bool(torch.equal(mine, theirs)))
+    res["full"] = {"s_per_step_each": s_step, "losses": losses,
+                   "bit_equal_after_step": equal,
+                   "peak_memory_gb": torch.cuda.max_memory_allocated(dev)
+                   / 1e9}
+    res["launches"] = {fn.__name__: fn.launches for fn in counted}
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_world2_phase(dev, work: str):
+    """Two ranks on the one card over gloo with CUDA tensors (NCCL refuses
+    two ranks on one device), each a process of this script. The tiny
+    step must equal the one-process step on the joined batch here, within
+    the CPU tests' tolerances (loss 1e-5 and gradient norm 2e-4 relative,
+    each update within 2e-3 of the step's largest update, BN statistics
+    1e-4); at full width the ranks' parameters must stay bit-equal after
+    every step."""
+    addr = f"localhost:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", str(r), "--dp-addr", addr,
+                               "--dp-out", work], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(DP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600) + (p.returncode,))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (out, err, rc) in enumerate(outs):
+        check(rc == 0, f"DP rank {r} exit {rc}:\n{out[-2000:]}\n"
+              f"{err[-4000:]}")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+           for r in range(DP_WORLD)]
+
+    # the tiny step against one process on the joined batch, on the card
+    cfg = dp_tiny_cfg()
+    model, state, step = train_setup(cfg, False, dev, SEED + 3)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    w = train_windows(cfg, dev, False, DP_TINY_POINTS, SEED + 4,
+                      batch=DP_WORLD)
+    state, metrics = step(state, w)
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    got = res[0]["tiny"]
+    for k, v in got["state"].items():
+        check(torch.equal(v, res[1]["tiny"]["state"][k]),
+              f"tiny DP: ranks differ at {k}")
+    check(abs(got["loss"] - loss) <= 1e-5 * abs(loss),
+          f"tiny DP loss {got['loss']} vs one process {loss}")
+    check(abs(got["grad_norm"] - gnorm) <= 2e-4 * abs(gnorm),
+          f"tiny DP grad norm {got['grad_norm']} vs one process {gnorm}")
+    params = [n for n, _ in model.named_parameters()]
+    scale = max(float((want[n] - before[n]).abs().max()) for n in params)
+    upd_err = 0.0
+    for n in params:
+        d_got, d_want = got["state"][n] - before[n], want[n] - before[n]
+        err = (d_got - d_want).abs()
+        upd_err = max(upd_err, float(err.max()) / scale)
+        check(float((err - 2e-3 * (scale + d_want.abs())).max()) <= 0,
+              f"tiny DP update of {n}")
+    stat_err = 0.0
+    for k in want:
+        if k.endswith(("running_mean", "running_var")):
+            err = (got["state"][k] - want[k]).abs()
+            stat_err = max(stat_err, float(err.max()))
+            check(float((err - 1e-4 * (1 + want[k].abs())).max()) <= 0,
+                  f"tiny DP statistics {k}")
+    del model, state, step
+
+    full = [r["full"] for r in res]
+    check(all(all(f["bit_equal_after_step"]) for f in full),
+          f"full DP: parameters not bit-equal: "
+          f"{[f['bit_equal_after_step'] for f in full]}")
+    check(full[0]["losses"] == full[1]["losses"] and
+          all(np.isfinite(full[0]["losses"])),
+          f"full DP losses {[f['losses'] for f in full]}")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    check(sum(launches.values()) == 0, f"DP path launched {launches}")
+    s_after = float(np.mean(full[0]["s_per_step_each"][1:]))
+    out = {"world": DP_WORLD, "backend": "gloo", "devices":
+           [r["device"] for r in res],
+           "tiny": {"config": "StreamMOS_tiny", "dtype": "float32",
+                    "points": DP_TINY_POINTS, "loss": got["loss"],
+                    "loss_one_process": loss, "grad_norm": got["grad_norm"],
+                    "grad_norm_one_process": gnorm,
+                    "update_err_of_largest": upd_err,
+                    "stat_abs_err": stat_err},
+           "full": {"config": "StreamMOS", "dtype": "bfloat16",
+                    "points": TRAIN_POINTS, "steps": DP_STEPS,
+                    "s_per_step_each": full[0]["s_per_step_each"],
+                    "s_per_step_after_first": s_after,
+                    "losses": full[0]["losses"],
+                    "bit_equal_after_step": [f["bit_equal_after_step"]
+                                             for f in full],
+                    "peak_memory_gb": [f["peak_memory_gb"] for f in full]},
+           "launches": launches, "process_wall_s": wall}
+    print(f"DP world 2 on one card over gloo (CUDA tensors; devices "
+          f"{out['devices']}): StreamMOS_tiny f32 step vs one process on "
+          f"the joined batch: loss {got['loss']:.6f} vs {loss:.6f}, grad "
+          f"norm {got['grad_norm']:.5f} vs {gnorm:.5f}, worst update "
+          f"{upd_err:.3e} of the largest, statistics {stat_err:.3e} "
+          f"(tolerances 1e-5, 2e-4, 2e-3, 1e-4); StreamMOS bf16 bs1 a "
+          f"rank, {DP_STEPS} steps: rank 1's parameters bit-equal to rank "
+          f"0's after every step {full[1]['bit_equal_after_step']}, host "
+          f"wall s/step "
+          + ", ".join(f"{x:.3f}" for x in full[0]["s_per_step_each"])
+          + f" ({s_after:.3f} after the first), losses "
+          + ", ".join(f"{x:.4f}" for x in full[0]["losses"])
+          + f"; launches {launches}; process wall {wall:.1f} s", flush=True)
+    return out
+
+
+def fusion_eval_phase(dev):
+    """The unfolded eval step (`make_eval_step`, one stream's TTA fan on
+    the batch) of each attention fusion: StreamMOS_tiny float32 on the
+    card against the CPU from the same weights, a fresh and a carried
+    frame (tolerance 2e-3 + 2e-3*|ref|); then StreamMOS_seg's width with
+    the fusion, bf16, one frame of POINTS points on the card, timed."""
+    from streammos_tpu_torch import train as tr
+    from streammos_tpu_torch.config import get_config
+    from streammos_tpu_torch.models.stream_mos import (featurize,
+                                                       memory_shape,
+                                                       tta_expand)
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    out = {}
+    for mode in ("branch_att", "point_att"):
+        tiny = get_config("StreamMOS_tiny")
+        tiny = dataclasses.replace(tiny, model=dataclasses.replace(
+            tiny.model, fusion_mode=mode))
+        rng = np.random.default_rng(SEED + 6)
+        xyzi = torch.from_numpy(skewed_scan_bank(rng, 2, tiny.model.seq_num,
+                                                 1024))
+        steps, mems = {}, {}
+        for d in ("cpu", dev):
+            model = tr.build_train_model(tiny, stage2=True, device=d,
+                                         seed=SEED + 7).eval()
+            steps[d] = tr.make_eval_step(model, tiny, with_refine=True)
+            mems[d] = torch.zeros(memory_shape(tiny.model, 4), device=d)
+        worst = 0.0
+        for i in range(2):
+            res = {}
+            for d in ("cpu", dev):
+                batch = featurize(tta_expand(xyzi[i].to(d)), tiny.model)
+                s, bf, mems[d] = steps[d](batch, mems[d], i > 0)
+                res[d] = (s.cpu(), bf.cpu(), mems[d].cpu())
+            for a, b in zip(res["cpu"], res[dev]):
+                err = float(((a - b).abs() - 2e-3 * a.abs()).max())
+                worst = max(worst, float((a - b).abs().max()))
+                check(err <= 2e-3, f"{mode} frame {i}: card vs CPU {err}")
+
+        cfg = get_config("StreamMOS_seg")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, fusion_mode=mode))
+        model = tr.build_train_model(cfg, stage2=True, device=dev,
+                                     seed=SEED).eval()
+        step = tr.make_eval_step(model, cfg, with_refine=True)
+        x = torch.from_numpy(skewed_scan_bank(
+            np.random.default_rng(SEED + 8), 1, cfg.model.seq_num,
+            POINTS)[0]).to(dev)
+        batch = featurize(tta_expand(x), cfg.model)
+        mem = torch.zeros(memory_shape(cfg.model, 4), device=dev)
+        step(batch, mem, False)
+        ms = time_ms(lambda: step(batch, mem, True), reps=4)
+        s, bf, _ = step(batch, mem, True)
+        for t in (s, bf):
+            check(tuple(t.shape) == (1, POINTS, 3)
+                  and bool(torch.isfinite(t).all())
+                  and float((t.sum(-1) - 1).abs().max()) < 1e-2,
+                  f"{mode} full-width scores")
+        out[mode] = {"tiny_card_vs_cpu_max_abs": worst,
+                     "full_ms_per_frame": ms}
+        print(f"unfolded eval, fusion_mode={mode}: StreamMOS_tiny f32 card "
+              f"vs CPU max abs diff {worst:.3e} over a fresh and a carried "
+              f"frame (tolerance 2e-3 + 2e-3*|ref|); StreamMOS_seg width "
+              f"bf16, {POINTS} points x T={cfg.model.seq_num}, TTA x4 on "
+              f"the batch: {ms:.3f} ms/frame (CUDA events, 4 frames)",
+              flush=True)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    return out
 
 
 def write_tree(root: str) -> str:
@@ -1437,6 +1842,11 @@ def main() -> int:
         host, seqs = dataset_phase(work, main, train)
         voting = voting_phase(seqs, work)
     rehearsal = rehearsal_phase()
+    dp1 = dp_world1_phase(dev, train)
+    with tempfile.TemporaryDirectory(prefix="smoke_dp_",
+                                     dir=os.path.join(REPO, "build")) as work:
+        dp2 = dp_world2_phase(dev, work)
+    fusion = fusion_eval_phase(dev)
 
     kernel["launches"] = main["launches"]["fused_header_tta"]
     kernel["launches_per_frame"] = kernel["launches"] / FRAMES
@@ -1447,6 +1857,8 @@ def main() -> int:
             t["launches"][k["name"]] for t in train.values())
         k["launches_cli_path"] = host["val_cli"]["launches"][k["name"]]
         k["launches_voting_path"] = voting["launches"][k["name"]]
+        k["launches_dp_path"] = (dp1["launches"][k["name"]]
+                                 + dp2["launches"][k["name"]])
     print(json.dumps({"kernels": [kernel, *scatters],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
@@ -1458,7 +1870,9 @@ def main() -> int:
                                 "steps_timed": TRAIN_STEPS, **train,
                                 "card_vs_cpu": agreement},
                       "host": host, "voting": voting,
-                      "rehearsal": rehearsal}),
+                      "rehearsal": rehearsal,
+                      "data_parallel": {"world1": dp1, "world2": dp2},
+                      "fusion_eval": fusion}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1468,4 +1882,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--dp-rank" in sys.argv:  # one rank of dp_world2_phase
+        a = sys.argv
+        sys.exit(dp_worker(int(a[a.index("--dp-rank") + 1]),
+                           a[a.index("--dp-addr") + 1],
+                           a[a.index("--dp-out") + 1]))
     sys.exit(main())

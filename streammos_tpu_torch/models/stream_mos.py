@@ -32,13 +32,14 @@ import torch.utils.checkpoint
 from streammos_tpu_torch import geometry
 from streammos_tpu_torch.config import ModelConfig
 from streammos_tpu_torch.losses import lovasz_softmax, make_criterion
-from streammos_tpu_torch.nn.blocks import (BN, CatFusion, PointNetStacker,
-                                           PredBranch, set_dropout_generator)
+from streammos_tpu_torch.nn.blocks import (BN, PointNetStacker, PredBranch,
+                                           make_fusion, set_dropout_generator)
 from streammos_tpu_torch.nn.encoder import MultiViewEncoder
 from streammos_tpu_torch.ops.sample import grid_to_point
 from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
+from streammos_tpu_torch.parallel import gather_batch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -98,7 +99,8 @@ class RefineBranch(nn.Module):
     def __init__(self, cfg: ModelConfig, in_channels, fold: int):
         super().__init__()
         c = cfg.point_feat_out_channels
-        self.bf_point_post = CatFusion(in_channels, c, fold, cfg.dropout_rate)
+        self.bf_point_post = make_fusion(cfg.fusion_mode, in_channels, c,
+                                         cfg.dropout_rate, fold)
         self.bf_pred_layer = PredBranch(c, cfg.class_num, fold,
                                         cfg.dropout_rate)
 
@@ -116,8 +118,6 @@ class StreamMOSNet(nn.Module):
     def __init__(self, cfg: ModelConfig, with_refine: bool = False,
                  tta_fold: bool = False):
         super().__init__()
-        if cfg.fusion_mode not in ("cat", "CatFusion"):
-            raise NotImplementedError(f"fusion_mode {cfg.fusion_mode!r}")
         self.cfg = cfg
         self.with_refine = with_refine
         self.tta_fold = tta_fold
@@ -127,8 +127,9 @@ class StreamMOSNet(nn.Module):
         self.point_pre = PointNetStacker(7, c0, pre_bn=True, stack_num=2,
                                          fold=fold)
         self.bev_net = MultiViewEncoder(cfg, tta_fold)
-        self.point_post = CatFusion(fused_in, cfg.point_feat_out_channels,
-                                    fold, cfg.dropout_rate)
+        self.point_post = make_fusion(cfg.fusion_mode, fused_in,
+                                      cfg.point_feat_out_channels,
+                                      cfg.dropout_rate, fold)
         self.pred_layer = PredBranch(cfg.point_feat_out_channels,
                                      cfg.class_num, fold, cfg.dropout_rate)
         if with_refine:
@@ -255,32 +256,39 @@ def bev_label_from_points(labels: torch.Tensor, bev_coord: torch.Tensor,
     return grid[..., 0].to(torch.int32)
 
 
+def _seg_loss(criterion, logits: torch.Tensor,
+              targets: torch.Tensor) -> torch.Tensor:
+    """criterion + 3 * Lovász over the global batch: while a process group
+    is active, every rank's logits and targets are gathered in rank order
+    first, so each rank computes the loss of the whole batch (OHEM's
+    top-k, the Lovász order and the `wce` sums included)."""
+    logits, targets = gather_batch(logits), gather_batch(targets)
+    return criterion(logits, targets) + 3.0 * lovasz_softmax(logits,
+                                                             targets, 0)
+
+
 def single_frame_loss(cfg: ModelConfig, outputs: Dict[str, torch.Tensor],
                       targets: torch.Tensor, bev_targets: torch.Tensor,
                       criterion=None) -> torch.Tensor:
     """Point loss + mean of the 3 aux BEV losses, each CE(+OHEM) +
-    3 * Lovász."""
+    3 * Lovász, over the global batch."""
     if criterion is None:
         criterion = make_criterion(cfg.loss_mode, cfg.class_num)
     B = targets.shape[0]
-
-    def seg_loss(logits, tgt):
-        return criterion(logits, tgt) + 3.0 * lovasz_softmax(logits, tgt, 0)
-
-    loss1 = seg_loss(outputs["pred"], targets)
-    aux_losses = [seg_loss(outputs[k].reshape(B, -1, cfg.class_num),
-                           bev_targets.reshape(B, -1))
+    loss1 = _seg_loss(criterion, outputs["pred"], targets)
+    aux_losses = [_seg_loss(criterion,
+                            outputs[k].reshape(B, -1, cfg.class_num),
+                            bev_targets.reshape(B, -1))
                   for k in ("aux0", "aux1", "aux2")]
     return loss1 + sum(aux_losses) / 3.0
 
 
 def refine_loss(cfg: ModelConfig, outputs: Dict[str, torch.Tensor],
                 bf_targets: torch.Tensor, criterion=None) -> torch.Tensor:
-    """Stage-2 loss: the movable head only."""
+    """Stage-2 loss: the movable head only, over the global batch."""
     if criterion is None:
         criterion = make_criterion(cfg.loss_mode, cfg.class_num)
-    return (criterion(outputs["bf_pred"], bf_targets)
-            + 3.0 * lovasz_softmax(outputs["bf_pred"], bf_targets, 0))
+    return _seg_loss(criterion, outputs["bf_pred"], bf_targets)
 
 
 @contextlib.contextmanager

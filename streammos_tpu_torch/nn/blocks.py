@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from streammos_tpu_torch import parallel
 from streammos_tpu_torch.ops.fused_header import fused_header_tta
 from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
 
@@ -37,6 +38,8 @@ class BN(nn.BatchNorm2d):
     The running statistics move to 0.9 * old + 0.1 * batch, with the biased
     variance (torch's BatchNorm uses the unbiased one), unless
     `update_stats` is off, as it is while a checkpointed forward runs again.
+    While a process group is active the statistics are the global batch's
+    (`_global_moments`), as JAX's mesh computes them.
 
     fold == 0: NCHW input, channels on dim 1. fold >= 1: channels last, as
     `fold` v-major blocks that share the (C,) statistics (the folded TTA
@@ -59,8 +62,11 @@ class BN(nn.BatchNorm2d):
         shape = [1] * x.ndim
         shape[ch] = -1
         xf = x.float()
-        mean = xf.mean(axes)
-        var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
+        if parallel.active():
+            mean, var = self._global_moments(xf, axes, xf.shape[ch])
+        else:
+            mean = xf.mean(axes)
+            var = torch.clamp(xf.square().mean(axes) - mean.square(), min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         if self.update_stats:
@@ -68,6 +74,20 @@ class BN(nn.BatchNorm2d):
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)
         return y.to(x.dtype)
+
+    @staticmethod
+    def _global_moments(xf: torch.Tensor, axes, C: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """E[x] and the clipped E[x^2] - E[x]^2 over every rank's batch:
+        the per-channel sums of x and x^2 and the element count summed over
+        the ranks in one differentiable all-reduce, so the gradient of the
+        normalization sees the global batch, as under JAX's mesh."""
+        count = xf.new_full((1,), xf.numel() // C)
+        sums = parallel.all_reduce_sum(torch.cat(
+            [xf.sum(axes), xf.square().sum(axes), count]))
+        mean = sums[:C] / sums[-1]
+        var = torch.clamp(sums[C:2 * C] / sums[-1] - mean.square(), min=0.0)
+        return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
@@ -238,6 +258,52 @@ class BasicBlock(nn.Module):
         return torch.relu(out + x)
 
 
+class SpatialAtt(nn.Module):
+    """Spatial attention: 3x3 conv to 4 channels + BN + ReLU, 3x3 conv
+    with bias to 1 channel, sigmoid gate on every channel."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.snet = nn.Sequential(
+            Conv2d(channels, 4, 3, 1, 1, bias=False), BN(4), nn.ReLU(),
+            Conv2d(4, 1, 3, 1, 1, bias=True), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.snet(x)
+
+
+class CSAtt(nn.Module):
+    """Channel attention, then spatial attention."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        self.channel_att = ChannelAtt(channels, reduction)
+        self.spatial_att = SpatialAtt(channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spatial_att(self.channel_att(x))
+
+
+class BasicBlockV2(nn.Module):
+    """BasicBlock with channel and spatial attention (`CSAtt`) before the
+    residual add; the second conv may be dilated. No shipped config
+    builds it."""
+
+    def __init__(self, planes: int, dilation: int = 1, use_att: bool = True):
+        super().__init__()
+        self.layer = nn.Sequential(
+            Conv2d(planes, planes, 3, 1, 1, bias=False), BN(planes), nn.ReLU(),
+            Conv2d(planes, planes, 3, 1, dilation, dilation=dilation,
+                   bias=False), BN(planes))
+        self.channel_att = CSAtt(planes) if use_att else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.layer(x)
+        if self.channel_att is not None:
+            out = self.channel_att(out)
+        return torch.relu(out + x)
+
+
 class UnbalanceBasicBlock(nn.Module):
     """Parallel (k0 x k1) and (k1 x k0) conv + BN + ReLU, concat, 3x3 conv +
     BN, residual ReLU."""
@@ -333,6 +399,72 @@ class CatFusion(nn.Module):
         for layer in self.merge_layer[1:]:
             x = layer(x)
         return x
+
+
+class BranchAttFusion(nn.Module):
+    """Per-source PointNet projections (`feat_model{i}`) mixed by the
+    softmax of one learned weight a source (`weights`, ones at init).
+    Unfolded layout only."""
+
+    def __init__(self, in_channels: Sequence[int], out_channel: int):
+        super().__init__()
+        self.weights = nn.Parameter(torch.ones(len(in_channels)))
+        for i, c in enumerate(in_channels):
+            setattr(self, f"feat_model{i}", PointNet(c, out_channel))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        dt = xs[0].dtype
+        w = torch.softmax(self.weights.float(), dim=0).to(dt)
+        out = None
+        for i, x in enumerate(xs):
+            proj = getattr(self, f"feat_model{i}")(x.to(dt)) * w[i]
+            out = proj if out is None else out + proj
+        return out
+
+
+class PointAttFusion(nn.Module):
+    """Per-source PointNet projections (`feat_model{i}`) stacked (..., N,
+    S, C), dropout, then per point a softmax over the S sources from two
+    1x1 convs over their concat (`att_layer`: S*C -> C, BN, ReLU, C -> S
+    with bias), and the weighted sum. Unfolded layout only."""
+
+    def __init__(self, in_channels: Sequence[int], out_channel: int,
+                 dropout_rate: float = 0.2):
+        super().__init__()
+        S = len(in_channels)
+        for i, c in enumerate(in_channels):
+            setattr(self, f"feat_model{i}", PointNet(c, out_channel))
+        self.dropout = Dropout(dropout_rate)
+        self.att_layer = nn.Sequential(
+            PointConv(S * out_channel, out_channel), BN(out_channel, 1),
+            nn.ReLU(), PointConv(out_channel, S, bias=True))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        dt = xs[0].dtype
+        stacked = torch.stack([getattr(self, f"feat_model{i}")(x.to(dt))
+                               for i, x in enumerate(xs)], dim=-2)
+        stacked = self.dropout(stacked)
+        att = self.att_layer(stacked.flatten(-2))
+        att = torch.softmax(att, dim=-1)[..., None]
+        return (stacked * att).sum(dim=-2)
+
+
+def make_fusion(mode: str, in_channels: Sequence[int], out_channel: int,
+                dropout_rate: float, fold: int = 1) -> nn.Module:
+    """The point fusion of `fusion_mode`, as JAX's registry builds it:
+    "cat" in either layout; "point_att" and "branch_att" unfolded only
+    (NotImplementedError when folded, as in JAX)."""
+    if mode in ("cat", "CatFusion"):
+        return CatFusion(in_channels, out_channel, fold, dropout_rate)
+    if fold > 1:
+        raise NotImplementedError(
+            f"fusion_mode {mode!r} has no folded-TTA path; run eval with "
+            "tta_fold=False (the shipped configs use CatFusion)")
+    if mode in ("point_att", "PointAttFusion"):
+        return PointAttFusion(in_channels, out_channel, dropout_rate)
+    if mode in ("branch_att", "BranchAttFusion"):
+        return BranchAttFusion(in_channels, out_channel)
+    raise KeyError(f"unknown fusion_mode {mode!r}")
 
 
 class PredBranch(nn.Module):

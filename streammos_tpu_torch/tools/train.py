@@ -1,10 +1,13 @@
-"""Stage-1 / stage-2 trainer CLI, one process on one card.
+"""Stage-1 / stage-2 trainer CLI, one process a card.
 
     python -m streammos_tpu_torch.tools.train --config StreamMOS --tag base \
         --data /path/sequences
     python -m streammos_tpu_torch.tools.train --config StreamMOS_seg \
         --tag base --data /path/sequences \
         --checkpoint experiments/StreamMOS/base/checkpoint --ckpt-epoch 47
+    # data-parallel: one such command a rank, R = 0 .. W-1
+    python -m streammos_tpu_torch.tools.train ... --coordinator host:port \
+        --num-processes W --process-id R
 
 Counterpart of `tools/train.py` of the JAX package. Writes under
 `experiments/<cfg>/<tag>/`: `checkpoint/<epoch:04d>/state.pt` after every
@@ -21,6 +24,18 @@ JAX CLI (`tools/train.py` there grafts ``params`` only, so its stage 2
 starts from fresh statistics, mean 0 and variance 1). Samples
 are assembled by `SampleWorkerPool` (the config's `num_workers`) behind a
 `PrefetchLoader`. Runs on the CUDA card unless `--device cpu`.
+
+Data-parallel, with JAX's roles and seeds: the process group over
+``tcp://<coordinator>`` (NCCL on CUDA, gloo on the CPU), rank R on
+``cuda:<R mod cards>``; a global batch of ``batch_size_per_device x W``
+rows, this rank's `process_shard_indices` of the epoch, the epoch's
+length from the global batch; `TrainDataset` seeded ``seed + R``, the
+worker pool ``seed + 7919 R``; dropout from ``seed + 1 + 7919 R``, so the
+ranks draw different masks (JAX draws one mask over the global batch from
+one key, ``seed + 1``, which no per-rank draw reproduces). Rank 0 alone
+saves the checkpoints, validates, writes `record_0.txt` and
+`scalars.jsonl`, and logs to `log_train.txt`; rank R > 0 logs to
+`log_train_R.txt`.
 """
 from __future__ import annotations
 
@@ -59,7 +74,21 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0 (data-parallel)")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
     return ap.parse_args(argv)
+
+
+def dropout_generator(seed: int):
+    """The generator of the step's dropout seeds on this rank:
+    ``seed + 1 + 7919 * rank``."""
+    import torch
+
+    from streammos_tpu_torch.parallel import process_index
+
+    return torch.Generator().manual_seed(seed + 1 + 7919 * process_index())
 
 
 def train_config(args):
@@ -90,27 +119,35 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from streammos_tpu_torch import serve
+    from streammos_tpu_torch import parallel, serve
     from streammos_tpu_torch import train as tr
     from streammos_tpu_torch.data.copy_paste import SequenceCutPaste
     from streammos_tpu_torch.data.dataset import EvalDataset, TrainDataset
     from streammos_tpu_torch.data.droplist import write_drop_list
     from streammos_tpu_torch.data.loader import (PrefetchLoader,
                                                  SampleWorkerPool)
-    from streammos_tpu_torch.parallel import process_shard_indices
     from streammos_tpu_torch.train.evaluate import record_metrics, stream_eval
     from streammos_tpu_torch.utils.logging import ScalarWriter, config_logger
 
-    device = serve.resolve_device(args.device)
+    parallel.initialize_distributed(args.coordinator, args.num_processes,
+                                    args.process_id, device=args.device)
+    rank, world = parallel.process_index(), parallel.process_count()
+    device = serve.resolve_device(parallel.local_device(args.device))
+    if device.type == "cuda" and parallel.active():
+        torch.cuda.set_device(device)  # the card NCCL's communicator binds
     cfg = train_config(args)
     stage2 = cfg.freeze_except is not None
 
     save_path = os.path.join("experiments", cfg.name, args.tag)
     ckpt_dir = os.path.join(save_path, "checkpoint")
-    logger = config_logger(os.path.join(save_path, "log_train.txt"))
-    writer = ScalarWriter(os.path.join(save_path, "scalars.jsonl"))
-    batch_size = cfg.batch_size_per_device
-    logger.info("device=%s batch=%d stage2=%s", device, batch_size, stage2)
+    logger = config_logger(os.path.join(
+        save_path, "log_train.txt" if rank == 0 else f"log_train_{rank}.txt"))
+    writer = (ScalarWriter(os.path.join(save_path, "scalars.jsonl"))
+              if rank == 0 else None)
+    global_bs = cfg.batch_size_per_device * world
+    local_bs = global_bs // world
+    logger.info("device=%s rank=%d/%d global_batch=%d stage2=%s", device,
+                rank, world, global_bs, stage2)
 
     # dataset
     cp = None
@@ -128,13 +165,15 @@ def main(argv=None):
             logger.info("drop list: kept %d/%d frames -> %s", n_kept, n_total,
                         drop_list)
     ds = TrainDataset(cfg.train, copy_paste=cp, drop_list_path=drop_list,
-                      seed=cfg.seed)
+                      seed=cfg.seed + rank)
     if len(ds) == 0:
         raise SystemExit(f"no training samples under {cfg.train.seq_dir}")
-    per_epoch_iters = max(-(-len(ds) // batch_size), 1)
+    # every rank takes ceil(len / global batch) steps: the order is padded
+    # to a multiple of the global batch
+    per_epoch_iters = max(-(-len(ds) // global_bs), 1)
 
     val_ds = None
-    if not args.no_val:
+    if not args.no_val and rank == 0:
         val_ds = EvalDataset(cfg.val, split="valid", with_labels=True)
         if len(val_ds) == 0:
             logger.warning("no sequence-08 frames under %s — in-train "
@@ -162,21 +201,23 @@ def main(argv=None):
         state = tr.restore(ckpt_dir, resume, state)
         start_epoch = resume + 1
         logger.info("resumed from epoch %d", resume)
+    parallel.replicate_state(state)
 
     step_fn = tr.make_train_step(model, cfg, tx, stage2=stage2)
     n_params = sum(p.numel() for p in params.values())
     logger.info("Total Parameters: %.2fM", n_params / 1e6)
 
-    generator = torch.Generator().manual_seed(cfg.seed + 1)  # dropout
+    generator = dropout_generator(cfg.seed)
     eval_model = None
-    pool = SampleWorkerPool(ds, cfg.train.num_workers, seed=cfg.seed)
+    pool = SampleWorkerPool(ds, cfg.train.num_workers,
+                            seed=cfg.seed + 7919 * rank)
     try:
         for epoch in range(start_epoch, cfg.optimize.end_epoch):
-            order = process_shard_indices(
-                len(ds), np.random.default_rng(cfg.seed + epoch), batch_size)
+            order = parallel.process_shard_indices(
+                len(ds), np.random.default_rng(cfg.seed + epoch), global_bs)
             t_epoch = time.time()
             loader = PrefetchLoader(
-                pool.batches(order, batch_size, TrainDataset.collate), depth=2)
+                pool.batches(order, local_bs, TrainDataset.collate), depth=2)
             n_steps, t_first = 0, None
             for it, batch in enumerate(loader):
                 if args.max_steps is not None and it >= args.max_steps:
@@ -192,7 +233,9 @@ def main(argv=None):
                     lr = float(sched(state.step))
                     logger.info("epoch %d iter %d loss %.4f lr %.5f", epoch,
                                 it, loss, lr)
-                    writer.add_scalars({"loss": loss, "lr": lr}, state.step)
+                    if writer is not None:
+                        writer.add_scalars({"loss": loss, "lr": lr},
+                                           state.step)
                 if n_steps == 1:
                     float(metrics["loss"])  # waits for the first step
                     t_warm = time.time()
@@ -207,7 +250,8 @@ def main(argv=None):
                             n_steps, t_end - t_first,
                             (t_end - t_first) / n_steps, after)
 
-            tr.save(ckpt_dir, epoch, state)
+            if rank == 0:
+                tr.save(ckpt_dir, epoch, state)
             if val_ds is not None and epoch >= args.start_val_epoch:
                 if eval_model is None:
                     eval_model = serve.build_model(
@@ -222,7 +266,10 @@ def main(argv=None):
             logger.info("epoch %d done in %.1fs", epoch, time.time() - t_epoch)
     finally:
         pool.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
+        if parallel.active():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

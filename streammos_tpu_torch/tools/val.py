@@ -8,10 +8,11 @@ prediction files.
 
 Writes `experiments/<cfg>/<tag>/<split>_results/sequences/<seq>/predictions/
 <frame>.label` (`<split>_bf_results` too for a stage-2 config) and appends
-the metrics to `experiments/<cfg>/<tag>/record_0.txt`. Loads the port's
-checkpoints (`train/checkpoint.py`) from `--checkpoint`, by default the
-tag's own `checkpoint/` directory; without one it evaluates weights drawn
-from the config's seed. Runs on the CUDA card unless `--device cpu`.
+the metrics to `experiments/<cfg>/<tag>/record_<rank>.txt` (rank 0 in one
+process). Loads the port's checkpoints (`train/checkpoint.py`) from
+`--checkpoint`, by default the tag's own `checkpoint/` directory; without
+one it evaluates weights drawn from the config's seed. Runs on the CUDA
+card unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import os
 def run_eval(cfg, args, with_refine: bool, logger):
     """The streaming eval of `args.split` as the CLI runs it; returns the
     metric dict (None on the test split, which has no labels)."""
-    from streammos_tpu_torch import serve
+    from streammos_tpu_torch import parallel, serve
     from streammos_tpu_torch.data.dataset import EvalDataset
     from streammos_tpu_torch.train import checkpoint as ckpt_lib
     from streammos_tpu_torch.train.evaluate import record_metrics, stream_eval
@@ -39,6 +40,10 @@ def run_eval(cfg, args, with_refine: bool, logger):
     ckpt_dir = args.checkpoint or os.path.join("experiments", cfg.name,
                                                args.tag, "checkpoint")
     epoch = args.epoch if args.epoch is not None else ckpt_lib.latest_epoch(ckpt_dir)
+    # with a process group of several ranks, each evaluates another epoch
+    # (the original torch val script's `epoch + rank`, kept by JAX's)
+    if epoch is not None and parallel.process_count() > 1:
+        epoch += parallel.process_index()
     state_dict = None
     if epoch is not None:
         state_dict = ckpt_lib.load_model_state(ckpt_dir, epoch)

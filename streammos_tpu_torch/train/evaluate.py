@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from streammos_tpu_torch import serve
+from streammos_tpu_torch import parallel, serve
 from streammos_tpu_torch.data import semantic_kitti as sk
 from streammos_tpu_torch.data.dataset import EvalDataset
 from streammos_tpu_torch.data.loader import PrefetchLoader
@@ -105,12 +105,13 @@ def stream_eval(cfg, dcfg, model, *, with_refine: bool, with_labels: bool,
 
 def record_metrics(result: Dict[str, float], epoch, save_path: str,
                    logger, writer=None) -> str:
-    """Append the `record_0.txt` line (one process: rank 0) and, with a
-    writer, the metrics as ``val/<name>`` scalars at step `epoch`."""
+    """Append the line to `record_<rank>.txt` (rank 0 without a process
+    group) and, with a writer, the metrics as ``val/<name>`` scalars at
+    step `epoch`."""
     line = f"Epoch {epoch}; " + "; ".join(f"{k}: {v}"
                                           for k, v in result.items())
     logger.info(line)
-    rec = os.path.join(save_path, "record_0.txt")
+    rec = os.path.join(save_path, f"record_{parallel.process_index()}.txt")
     os.makedirs(os.path.dirname(rec), exist_ok=True)
     with open(rec, "a") as f:
         f.write(line + "\n")

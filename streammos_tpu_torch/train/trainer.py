@@ -4,10 +4,11 @@ trainer starts from.
 Counterpart of `streammos_tpu/train/trainer.py`. One train step is the
 whole streaming objective (`streaming_loss`: S windows with the memory
 carry and BPTT through it), one backward, the gradient's global norm and
-one optimizer update. As in JAX, every parameter is differentiated and the
-whole model runs in train mode, so in stage 2 (``freeze_except="refine"``)
-the frozen backbone's BN running statistics move while only the refine
-head's parameters change.
+one optimizer update; across processes, the same step on the global
+batch (`streammos_tpu_torch.parallel`). As in JAX, every parameter is
+differentiated and the whole model runs in train mode, so in stage 2
+(``freeze_except="refine"``) the frozen backbone's BN running statistics
+move while only the refine head's parameters change.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from streammos_tpu_torch import parallel
 from streammos_tpu_torch.config import Config
 from streammos_tpu_torch.models.stream_mos import (StreamMOSNet, stage_forward,
                                                    streaming_loss, tta_scores)
@@ -47,7 +49,20 @@ def make_train_step(model: StreamMOSNet, cfg: Config, tx: Optimizer,
     the global norm of the gradient over every parameter (a parameter the
     loss does not reach counts as a zero gradient). `windows` is laid out
     as `streaming_loss` documents; `generator` (a CPU `torch.Generator`)
-    seeds the dropout of the step's windows."""
+    seeds the dropout of the step's windows.
+
+    Data-parallel (a process group active): `windows` holds this rank's
+    rows of the global batch, and the step is JAX's step on the global
+    batch. The BN statistics and the losses are the global batch's (`BN`,
+    `single_frame_loss`), so every rank computes the same global loss L.
+    Each rank back-propagates L / W (W ranks): the gathers' backward sums
+    the W ranks' cotangents of the gathered logits, W x (1/W) dL/dlogits,
+    so each rank receives exactly dL/d(its logits), and the BN all-reduce's
+    backward likewise sums the ranks' cotangents of the statistics. Each
+    rank's gradient is then its rows' share of dL/dtheta, and the sum over
+    the ranks (`all_reduce_grads`, in flat buckets) is JAX's gradient.
+    The loss and `grad_norm` reported are the global loss and the norm of
+    the summed gradient, the same on every rank."""
     params = dict(model.named_parameters())
 
     def step_fn(state: TrainState, windows: Mapping[str, torch.Tensor],
@@ -58,9 +73,13 @@ def make_train_step(model: StreamMOSNet, cfg: Config, tx: Optimizer,
             p.grad = None
         loss = streaming_loss(model, windows, cfg.model, generator,
                               stage2=stage2, remat=remat)
-        loss.backward()
+        if parallel.active():
+            (loss / parallel.process_count()).backward()
+        else:
+            loss.backward()
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                  for n, p in params.items()}
+        parallel.all_reduce_grads(grads)
         updates, state.opt_state = tx.update(grads, state.opt_state, params)
         apply_updates(params, updates)
         state.step += 1

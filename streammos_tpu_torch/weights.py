@@ -12,6 +12,12 @@ rules (numpy only):
   flax Dense kernel (I, O) of a point 1x1 conv  ->  (O, I, 1, 1)
   flax Dense kernel (I, O) of a Linear  ->  (O, I)
   BN scale/bias + batch_stats mean/var  ->  weight/bias/running_{mean,var}
+
+JAX's `build_mapping` has no rules for the attention fusions
+(`fusion_mode` "branch_att", "point_att"); this copy names their keys
+after the flax modules (`point_post.feat_model{i}.…`,
+`point_post.weights`, `point_post.att_layer.…`, the same under
+`refine.bf_point_post`).
 """
 from __future__ import annotations
 
@@ -128,6 +134,50 @@ class _Mapping:
         self.p(fp + ("Dense_1", "kernel"), tp + ".merge_layer.3.weight", _dense_to_1x1)
         self.bn(fp + ("BN_1",), tp + ".merge_layer.4")
 
+    def branch_att_fusion(self, fp: PathT, tp: str, n: int) -> None:
+        self.p(fp + ("weights",), tp + ".weights", _identity)
+        for i in range(n):
+            self.pointnet(fp + (f"feat_model{i}",), f"{tp}.feat_model{i}",
+                          pre_bn=False)
+
+    def point_att_fusion(self, fp: PathT, tp: str, n: int) -> None:
+        for i in range(n):
+            self.pointnet(fp + (f"feat_model{i}",), f"{tp}.feat_model{i}",
+                          pre_bn=False)
+        self.p(fp + ("Dense_0", "kernel"), tp + ".att_layer.0.weight", _dense_to_1x1)
+        self.bn(fp + ("BN_0",), tp + ".att_layer.1")
+        self.p(fp + ("Dense_1", "kernel"), tp + ".att_layer.3.weight", _dense_to_1x1)
+        self.p(fp + ("Dense_1", "bias"), tp + ".att_layer.3.bias", _identity)
+
+    def fusion(self, mode: str, fp: PathT, tp: str, n: int) -> None:
+        """The rules of `nn/blocks.py:make_fusion`'s module for `mode`."""
+        if mode in ("cat", "CatFusion"):
+            self.cat_fusion(fp, tp)
+        elif mode in ("point_att", "PointAttFusion"):
+            self.point_att_fusion(fp, tp, n)
+        elif mode in ("branch_att", "BranchAttFusion"):
+            self.branch_att_fusion(fp, tp, n)
+        else:
+            raise KeyError(f"unknown fusion_mode {mode!r}")
+
+    def spatial_att(self, fp: PathT, tp: str) -> None:
+        self.p(fp + ("Conv_0", "kernel"), tp + ".snet.0.weight", _conv)
+        self.bn(fp + ("BN_0",), tp + ".snet.1")
+        self.p(fp + ("Conv_1", "kernel"), tp + ".snet.3.weight", _conv)
+        self.p(fp + ("Conv_1", "bias"), tp + ".snet.3.bias", _identity)
+
+    def cs_att(self, fp: PathT, tp: str) -> None:
+        self.channel_att(fp + ("ChannelAtt_0",), tp + ".channel_att")
+        self.spatial_att(fp + ("SpatialAtt_0",), tp + ".spatial_att")
+
+    def basic_block_v2(self, fp: PathT, tp: str, att: bool) -> None:
+        self.p(fp + ("Conv_0", "kernel"), tp + ".layer.0.weight", _conv)
+        self.bn(fp + ("BN_0",), tp + ".layer.1")
+        self.p(fp + ("Conv_1", "kernel"), tp + ".layer.3.weight", _conv)
+        self.bn(fp + ("BN_1",), tp + ".layer.4")
+        if att:
+            self.cs_att(fp + ("CSAtt_0",), tp + ".channel_att")
+
     def pred_branch(self, fp: PathT, tp: str) -> None:
         self.p(fp + ("Dense_0", "kernel"), tp + ".pred_layer.0.weight", _dense_to_1x1)
         self.p(fp + ("Dense_0", "bias"), tp + ".pred_layer.0.bias", _identity)
@@ -174,10 +224,11 @@ def build_mapping(cfg: ModelConfig, with_refine: bool = False) -> _Mapping:
     for i in (1, 2, 3):
         m.p(("bev_net", f"aux_head{i}", "kernel"), f"bev_net.aux_head{i}.weight", _conv)
         m.p(("bev_net", f"aux_head{i}", "bias"), f"bev_net.aux_head{i}.bias", _identity)
-    m.cat_fusion(("point_post",), "point_post")
+    m.fusion(cfg.fusion_mode, ("point_post",), "point_post", 3)
     m.pred_branch(("pred_layer",), "pred_layer")
     if with_refine:
-        m.cat_fusion(("refine", "bf_point_post"), "refine.bf_point_post")
+        m.fusion(cfg.fusion_mode, ("refine", "bf_point_post"),
+                 "refine.bf_point_post", 3)
         m.pred_branch(("refine", "bf_pred_layer"), "refine.bf_pred_layer")
     return m
 
@@ -193,7 +244,14 @@ def from_flax_variables(variables: Mapping[str, Any], cfg: ModelConfig,
                         with_refine: bool = False) -> Dict[str, torch.Tensor]:
     """JAX variables tree (nested dicts of numpy arrays) -> the port's
     state_dict (float32 CPU tensors; `num_batches_tracked` absent)."""
-    mapping = build_mapping(cfg, with_refine)
+    return apply_mapping(build_mapping(cfg, with_refine), variables)
+
+
+def apply_mapping(mapping: _Mapping, variables: Mapping[str, Any]
+                  ) -> Dict[str, torch.Tensor]:
+    """The state_dict that `mapping`'s rules make of a JAX variables tree
+    (a whole network's, or a single block's with a `_Mapping` of its
+    own)."""
     out: Dict[str, torch.Tensor] = {}
     for tree_name, rules in (("params", mapping.params),
                              ("batch_stats", mapping.stats)):

@@ -46,7 +46,8 @@ def test_port_imports_no_jax():
                  "postprocess.voting", "postprocess.dbscan", "utils.boxes",
                  "utils.visualize", "tools.voting", "tools.port_weights",
                  "tools.extract_objects", "tools.make_drop_list",
-                 "tools.synthetic", "tools.dress_rehearsal"):
+                 "tools.synthetic", "tools.dress_rehearsal",
+                 "utils.profiling"):
         assert f"streammos_tpu_torch.{name}" in report["modules"]
 
 
