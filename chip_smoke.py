@@ -8,12 +8,17 @@ result line):
   1. device: the card's name and power limit;
   2. build every CUDA kernel of the port from the sources in this checkout;
   3. the fused TTA header against its plain PyTorch version on the card: at
-     the unit-test shape in float32 (the CUDA-core kernel), and in bfloat16
-     (the tensor-core kernel, against the plain version run in float32 on
-     the same bfloat16 inputs) at Bt=2 on a ragged grid, where NaN in the
-     padding rows must leave the output unchanged, and at the production
-     shape; kernel (weight packing included) and plain version timed at
-     the production shape, with the achieved GB/s and share of the bound;
+     the unit-test shape in float32 (the 3xTF32 tensor-core kernel), and in
+     bfloat16 (the tensor-core kernel, against the plain version run in
+     float32 on the same bfloat16 inputs) at Bt=2 on a ragged grid, where
+     NaN in the padding rows must leave the output unchanged, and at the
+     production shape; kernel (weight packing included) and plain version
+     timed at the production shape, with the achieved GB/s and share of the
+     bound; then float32 again (rtol = atol = 1e-4) at Bt=2 on a ragged grid
+     at C=48 and at C=3, NaN padding rows changing nothing, and at the
+     production shape, checked and timed eagerly (`ms`), from a CUDA graph
+     (`device_ms`) and in its plain version, beside the bytes bound and the
+     3xTF32 bound (and the float32-FMA one); it must beat its plain version;
   4. the scatter kernels, at the five scatter sites of one main-path frame
      of StreamMOS_seg (coordinates from `featurize(tta_expand_folded(...))`
      of a range-skewed frame, non-negative bfloat16 features from the seed):
@@ -36,6 +41,12 @@ result line):
      frame and carried after; launch counts are zeroed just before and read
      just after (the scatters take `impl="auto"` there: the scatter kernels
      launch no time);
+  5b. the main path in float32: StreamMOS_seg with compute_dtype "float32"
+     (`dataclasses.replace`), the same frames, counts zeroed just before and
+     read just after (the float32 header kernel once a frame), ms/frame
+     beside the bf16 path's; scores held against the same weights with
+     `fused_header=False` (the frame-split header in plain PyTorch) within
+     1e-5;
   6. agreement on a small input: StreamMOS_tiny in float32 through the port
      on the card (kernel) and on the CPU (plain versions), same weights;
   7. training at full width (bf16, random weights from a seed), the
@@ -102,7 +113,8 @@ result line):
      weights, then StreamMOS_seg's width in bf16 at 160k points, timed.
 
 TF32 is off for the whole run, so float32 convolutions and matmuls on the
-card are full float32. Prints one {"kernels": [...], "train": {...},
+card are full float32. Prints one {"kernels": [...], "main_path": {...},
+"main_path_float32": {...}, "train": {...},
 "host": {...}, "voting": {...}, "rehearsal": {...}, "data_parallel":
 {...}, "fusion_eval": {...}} line, the card's name
 and power limit, and as the last line {"ok": true, "device": {...}}.
@@ -140,7 +152,12 @@ VOTE_REPS = 3
 # published peaks of the H100 SXM part at 700 W (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12  # outside the tensor cores
+F32_TOL = 1e-4  # the float32 header kernel against its plain version
+# float32 main path scores, fused header vs frame-split: about 4x the
+# 2.444e-06 they differ by on an H100 80GB HBM3
+F32_PATH_TOL = 1e-5
 
 
 def check(cond: bool, what: str) -> None:
@@ -201,11 +218,29 @@ def bf16_check(fh, got, g, k3, k1, ca, pa, T, what):
     return err
 
 
+def f32_check(fh, got, args, T, what):
+    """The float32 kernel's output against the plain version on the same
+    inputs (TF32 off): |got - want| <= 1e-4 + 1e-4 |want|, as the CUDA
+    tests. Returns the max abs error."""
+    want = fh.fused_header_reference(*args, T)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = float(diff.max())
+    excess = float((diff - F32_TOL * (1 + want.abs())).max())
+    print(f"fused_header f32 {what} {tuple(args[0].shape)}: max_abs_err "
+          f"{err:.3e} (tolerance 1e-4 + 1e-4*|ref|)", flush=True)
+    check(excess <= 0 and bool(torch.isfinite(got).all()),
+          f"fused header f32 {what} err {err}")
+    return err
+
+
 def header_phase(dev, name, cfg):
+    """The fused header's two kernels against their plain version; returns
+    their entries of the `kernels` line (bf16, float32)."""
     from streammos_tpu_torch.ops import fused_header as fh
 
     gen = torch.Generator().manual_seed(SEED)
-    # unit-test shape (tests/test_fused_header.py), float32 (the CUDA-core
+    # unit-test shape (tests/test_fused_header.py), float32 (the 3xTF32
     # kernel), Bt = 1 and 2
     for Bt in (1, 2):
         g, k3, k1, ca, pa = header_inputs(gen, dev, Bt, 3, 8, 16, 16, 128,
@@ -262,7 +297,7 @@ def header_phase(dev, name, cfg):
           f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
           f"{flops / 1e9:.2f} GFLOP); {gb_per_s:.1f} GB/s, "
           f"{bound_ms / kernel_ms:.3f} of the bound", flush=True)
-    return {
+    bf16_entry = {
         "name": "fused_header_tta",
         "route": "cuda",
         "source": "streammos_tpu_torch/csrc/fused_header.cu",
@@ -283,6 +318,85 @@ def header_phase(dev, name, cfg):
         "pack_ms": pack_ms,
         "shape": list(g.shape),
         "dtype": "bfloat16",
+    }
+    return bf16_entry, header_f32(fh, dev, cfg)
+
+
+def header_f32(fh, dev, cfg):
+    """The float32 kernel (3xTF32 on the tensor cores): a ragged Bt=2 grid
+    at C = 48 and at C = 3 (4-byte copies), NaN in the padding rows
+    changing nothing; at the production shape checked, timed eagerly
+    (weight packing included, `ms`) and replayed from a CUDA graph
+    (`device_ms`), beside the plain version and both bounds. Returns its
+    entry of the `kernels` line."""
+    m = cfg.model
+    T, C, Cout = m.seq_num, m.context_layers[0], m.context_layers[1]
+    Hh, Wh = m.voxel.bev_wl[0] // 2, m.voxel.bev_wl[1] // 2
+    gen = torch.Generator().manual_seed(SEED + 1)
+    err = 0.0
+    for c, cout in ((48, 24), (3, 16)):
+        args = header_inputs(gen, dev, 2, T, c, cout, 37, 45, torch.float32)
+        got = fh.fused_header_tta(*args, T)
+        err = max(err, f32_check(fh, got, args, T, f"ragged Bt=2 C={c}"))
+        g = args[0].clone()
+        g[:, :, 0] = float("nan")
+        g[:, :, -1] = float("nan")
+        check(torch.equal(fh.fused_header_tta(g, *args[1:], T), got),
+              f"fused header f32 C={c} reads the padding rows")
+    print("fused_header f32 ragged Bt=2, C=48 and C=3: NaN padding rows "
+          "leave the output unchanged", flush=True)
+
+    args = header_inputs(gen, dev, 1, T, C, Cout, Hh, Wh, torch.float32)
+    got = fh.fused_header_tta(*args, T)
+    err = max(err, f32_check(fh, got, args, T, "production shape"))
+    call = lambda: fh.fused_header_tta(*args, T)
+    kernel_ms = time_ms(call, 20)
+    device_ms = graph_ms(call, 20)
+    plain_ms = time_ms(lambda: fh.fused_header_reference(*args, T), 3,
+                       warmup=1)
+    g, k3, k1 = args[:3]
+    nbytes = g[:, :, 1:-1].numel() * g.element_size()
+    nbytes += sum(t.numel() * t.element_size() for t in (k3, k1, got))
+    nbytes += 4 * Cout * 4
+    flops = 2 * 4 * Hh * Wh * Cout * T * C * (9 + 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tf32_ms = 3 * flops / TF32_FLOP_PER_S * 1e3  # three TF32 products
+    fma_ms = flops / F32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, tf32_ms)
+    print(f"fused_header f32 production: kernel {kernel_ms:.4f} ms eager, "
+          f"{device_ms:.4f} ms from a CUDA graph, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms (bytes {bytes_ms:.4f}: "
+          f"{nbytes / 1e6:.1f} MB; 3xTF32 {tf32_ms:.4f}: 3 x "
+          f"{flops / 1e9:.2f} GFLOP at 495 TFLOP/s; float32 FMAs would "
+          f"take {fma_ms:.4f}); {device_ms / bound_ms:.2f}x the bound",
+          flush=True)
+    check(kernel_ms < plain_ms, f"f32 kernel {kernel_ms} ms not faster "
+          f"than its plain version {plain_ms} ms")
+    return {
+        "name": "fused_header_tta_float32",
+        "route": "cuda",
+        "source": "streammos_tpu_torch/csrc/fused_header.cu",
+        "replaces": "streammos_tpu/ops/fused_header.py:198",
+        "replaces_function": ("_pair_kernel (pallas_call at :423, in "
+                              "fused_header_tta), float32 g_phase"),
+        "ok": True,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "device_ms": device_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= tf32_ms else "operations",
+        "bytes_bound_ms": bytes_ms,
+        "tf32x3_bound_ms": tf32_ms,
+        "fp32_fma_bound_ms": fma_ms,
+        "library_ms": None,
+        "library_note": ("no single PyTorch call computes the fused header "
+                         "(two convolutions, two affines, a max-pool and a "
+                         "ReLU over four flipped views)"),
+        "bound_share": bound_ms / device_ms,
+        "shape": list(g.shape),
+        "dtype": "float32",
+        "tolerance": "rtol = atol = 1e-4 against the plain version",
     }
 
 
@@ -648,50 +762,88 @@ def counted_kernels():
     return (fh.fused_header_tta, ps.sorted_scatter_max, pv.scatter_max_vmem)
 
 
+def zero_counts() -> None:
+    """Every hand kernel's launch count to 0, the float32 header's too."""
+    header, *rest = counted_kernels()
+    for fn in (header, *rest):
+        fn.launches = 0
+    header.launches_float32 = 0
+
+
+def read_counts() -> dict:
+    """Each hand kernel's launches since `zero_counts`, by name; the float32
+    header kernel's also apart, as "fused_header_tta_float32"
+    ("fused_header_tta" counts the launches of both dtypes)."""
+    header, *rest = counted_kernels()
+    counts = {fn.__name__: fn.launches for fn in (header, *rest)}
+    counts["fused_header_tta_float32"] = header.launches_float32
+    return counts
+
+
+def main_frames(cfg, dev):
+    """The main path's frames: one sequence of range-skewed scans from the
+    seed, (T, N, 4) each, warm-up frames first."""
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    bank = torch.from_numpy(skewed_scan_bank(
+        np.random.default_rng(SEED), WARMUP_FRAMES + FRAMES,
+        cfg.model.seq_num, POINTS)).to(dev)
+    return [{"xyzi": f[0], "seq_id": "00"} for f in bank]
+
+
+def stream_frames(model, frames):
+    """`serve.stream_eval` over `frames`: the outputs and each frame's ms
+    (CUDA events)."""
+    from streammos_tpu_torch import serve
+
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(frames) + 1)]
+    outs = []
+    events[0].record()
+    for scores, bf_scores in serve.stream_eval(model, frames):
+        events[len(outs) + 1].record()
+        outs.append((scores, bf_scores))
+    torch.cuda.synchronize()
+    return outs, [events[i].elapsed_time(events[i + 1])
+                  for i in range(len(outs))]
+
+
+def check_scores(outs):
+    """FRAMES frames of (scores, bf_scores), each (POINTS, 3) float32,
+    finite, summing to 1."""
+    check(len(outs) == FRAMES, f"{len(outs)} frames out of {FRAMES}")
+    for scores, bf_scores in outs:
+        for s in (scores, bf_scores):
+            check(s is not None and tuple(s.shape) == (POINTS, 3)
+                  and s.dtype == torch.float32,
+                  f"scores {None if s is None else (tuple(s.shape), s.dtype)}")
+            check(bool(torch.isfinite(s).all()), "scores finite")
+            sums_err = float((s.sum(-1) - 1).abs().max())
+            check(sums_err < 1e-4, f"scores sum to 1 (err {sums_err})")
+
+
 def main_path_phase(dev, cfg):
     """The user's loop, `serve.stream_eval`, over one sequence: the first
     frame fresh, the memory carried after."""
     from streammos_tpu_torch import serve
-    from streammos_tpu_torch.scans import skewed_scan_bank
 
     model = serve.build_model(cfg, with_refine=True, device=dev, seed=SEED)
     T = cfg.model.seq_num
-    rng = np.random.default_rng(SEED)
-    bank = torch.from_numpy(skewed_scan_bank(rng, WARMUP_FRAMES + FRAMES, T,
-                                             POINTS)).to(dev)
-    frames = [{"xyzi": f[0], "seq_id": "00"} for f in bank]  # (T, N, 4) each
-
-    for _ in serve.stream_eval(model, frames[:WARMUP_FRAMES]):
-        pass
-    torch.cuda.synchronize()
+    frames = main_frames(cfg, dev)
+    stream_frames(model, frames[:WARMUP_FRAMES])
 
     torch.cuda.reset_peak_memory_stats(dev)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(FRAMES + 1)]
-    outs = []
-    counted = counted_kernels()
-    for fn in counted:
-        fn.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
-    events[0].record()
-    for scores, bf_scores in serve.stream_eval(model, frames[WARMUP_FRAMES:]):
-        events[len(outs) + 1].record()
-        outs.append((scores, bf_scores))
-    torch.cuda.synchronize()
+    outs, ms = stream_frames(model, frames[WARMUP_FRAMES:])
     wall_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
 
-    check(len(outs) == FRAMES, f"{len(outs)} frames out of {FRAMES}")
-    ms = [events[i].elapsed_time(events[i + 1]) for i in range(FRAMES)]
-    for scores, bf_scores in outs:
-        for s in (scores, bf_scores):
-            check(s is not None and tuple(s.shape) == (POINTS, 3),
-                  f"scores shape {None if s is None else tuple(s.shape)}")
-            check(bool(torch.isfinite(s).all()), "scores finite")
-            sums_err = float((s.sum(-1) - 1).abs().max())
-            check(sums_err < 1e-4, f"scores sum to 1 (err {sums_err})")
-    check(launches["fused_header_tta"] == FRAMES,
-          f"fused header launches {launches} != {FRAMES}")
+    check_scores(outs)
+    check(launches["fused_header_tta"] == FRAMES
+          and launches["fused_header_tta_float32"] == 0,
+          f"fused header launches {launches} != {FRAMES} bf16")
     print(f"main path StreamMOS_seg bf16, {POINTS} points x T={T}, TTA x4 "
           f"folded, {FRAMES} frames through serve.stream_eval: "
           f"{np.mean(ms):.3f} ms/frame mean, {np.median(ms):.3f} median, "
@@ -701,6 +853,58 @@ def main_path_phase(dev, cfg):
     print("per-frame ms: " + ", ".join(f"{m:.3f}" for m in ms), flush=True)
     return {"launches": launches, "ms_per_frame": float(np.mean(ms)),
             "peak_gb": peak_gb}
+
+
+def main_path_f32_phase(dev, cfg, bf16_ms):
+    """The main path in float32: StreamMOS_seg with `compute_dtype`
+    "float32" (through `dataclasses.replace`), the same frames as the bf16
+    main path, counts zeroed just before and read just after; the float32
+    header kernel must launch once a frame. Its scores held against the
+    same model with `fused_header=False` (the frame-split header in plain
+    PyTorch, TF32 off) within F32_PATH_TOL."""
+    from streammos_tpu_torch import serve
+
+    m32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, model=m32)
+    model = serve.build_model(cfg32, with_refine=True, device=dev, seed=SEED)
+    T = cfg.model.seq_num
+    frames = main_frames(cfg, dev)
+    stream_frames(model, frames[:WARMUP_FRAMES])
+
+    zero_counts()
+    outs, ms = stream_frames(model, frames[WARMUP_FRAMES:])
+    launches = read_counts()
+    check_scores(outs)
+    check(launches["fused_header_tta_float32"] == FRAMES
+          and launches["fused_header_tta"] == FRAMES,
+          f"float32 path header launches {launches} != {FRAMES}")
+
+    ref = serve.build_model(dataclasses.replace(
+        cfg32, model=dataclasses.replace(m32, fused_header=False)),
+        with_refine=True, device=dev, seed=SEED)
+    stream_frames(ref, frames[:WARMUP_FRAMES])
+    ref_outs, ref_ms = stream_frames(ref, frames[WARMUP_FRAMES:])
+    del ref
+    err = max(float((a - b).abs().max())
+              for pair, ref_pair in zip(outs, ref_outs)
+              for a, b in zip(pair, ref_pair))
+    print(f"main path StreamMOS_seg float32, {POINTS} points x T={T}, TTA x4 "
+          f"folded, {FRAMES} frames through serve.stream_eval: "
+          f"{np.mean(ms):.3f} ms/frame mean, {np.median(ms):.3f} median "
+          f"(CUDA events; the bf16 main path of this run {bf16_ms:.3f}); "
+          f"launches {launches}; scores against fused_header=False "
+          f"({np.mean(ref_ms):.3f} ms/frame): max abs diff {err:.3e} "
+          f"(tolerance {F32_PATH_TOL})", flush=True)
+    print("float32 per-frame ms: " + ", ".join(f"{x:.3f}" for x in ms),
+          flush=True)
+    check(err <= F32_PATH_TOL, f"float32 path vs fused_header=False: {err}")
+    return {"config": "StreamMOS_seg", "compute_dtype": "float32",
+            "points": POINTS, "frames": FRAMES, "launches": launches,
+            "ms_per_frame": float(np.mean(ms)),
+            "ms_per_frame_bf16_same_run": bf16_ms,
+            "fused_header_false_ms_per_frame": float(np.mean(ref_ms)),
+            "scores_max_abs_diff_vs_fused_header_false": err,
+            "tolerance": F32_PATH_TOL}
 
 
 def small_agreement_phase(dev):
@@ -819,9 +1023,7 @@ def train_phase(dev):
         windows = train_windows(cfg, dev, stage2, TRAIN_POINTS, SEED + 2)
         gen = torch.Generator().manual_seed(SEED)
         before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        counted = counted_kernels()
-        for fn in counted:
-            fn.launches = 0
+        zero_counts()
         losses = []
         for _ in range(TRAIN_WARMUP):
             state, metrics = step(state, windows, gen)
@@ -838,7 +1040,7 @@ def train_phase(dev):
             events[i + 1].record()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = read_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         busy = device_busy(lambda: step(state, windows, gen))
         s_step = [events[i].elapsed_time(events[i + 1]) / 1e3
@@ -1011,9 +1213,7 @@ def dp_world1_phase(dev, train):
             losses.append(metrics["loss"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        counted = counted_kernels()
-        for fn in counted:
-            fn.launches = 0
+        zero_counts()
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(TRAIN_STEPS + 1)]
         events[0].record()
@@ -1022,7 +1222,7 @@ def dp_world1_phase(dev, train):
             losses.append(metrics["loss"])
             events[i + 1].record()
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = read_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
         busy = device_busy(lambda: step(state, windows, gen),
                            collectives=True)
@@ -1109,9 +1309,7 @@ def dp_worker(rank: int, addr: str, out_dir: str) -> int:
     dev = parallel.local_device("cuda")
     torch.cuda.set_device(dev)
     res = {"rank": rank, "device": str(dev)}
-    counted = counted_kernels()
-    for fn in counted:
-        fn.launches = 0
+    zero_counts()
 
     cfg = dp_tiny_cfg()
     model, state, step = train_setup(cfg, False, dev, SEED + 3)
@@ -1148,7 +1346,7 @@ def dp_worker(rank: int, addr: str, out_dir: str) -> int:
                    "bit_equal_after_step": equal,
                    "peak_memory_gb": torch.cuda.max_memory_allocated(dev)
                    / 1e9}
-    res["launches"] = {fn.__name__: fn.launches for fn in counted}
+    res["launches"] = read_counts()
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
     return 0
@@ -1448,18 +1646,16 @@ def val_cli_phase(seqs: str, work: str):
         ends.append(time.perf_counter())
         return out
 
-    counted = counted_kernels()
     cwd = os.getcwd()
     os.chdir(work)
     serve.eval_step, evaluate.stream_eval = timed_step, timed_stream
     try:
         logger = config_logger(os.path.join("experiments", cfg.name, "smoke",
                                             "log_val.txt"))
-        for fn in counted:
-            fn.launches = 0
+        zero_counts()
         result = val_cli.run_eval(cfg, args, True, logger)
         torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counted}
+        launches = read_counts()
     finally:
         serve.eval_step, evaluate.stream_eval = step, stream
         os.chdir(cwd)
@@ -1696,9 +1892,7 @@ def voting_phase(seqs: str, work: str):
                                                         voxel_vote_device)
     from streammos_tpu_torch.tools.voting import resolve_vote_backend
 
-    counted = counted_kernels()
-    for fn in counted:
-        fn.launches = 0
+    zero_counts()
     cli = voting_cli_runs(seqs, work)
 
     voxel = get_config("StreamMOS_seg").model.voxel
@@ -1725,7 +1919,7 @@ def voting_phase(seqs: str, work: str):
         check(np.array_equal(got, want), "production vote: numpy != CUDA")
     busy = device_busy(lambda: voxel_vote_device(*args, device="cuda"))
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = read_counts()
     check(not any(launches.values()), f"voting path launches {launches}")
 
     prod = {"scans": VOTE_SCANS, "local_points": int(args[0].shape[0]),
@@ -1830,9 +2024,10 @@ def main() -> int:
           flush=True)
 
     cfg = get_config("StreamMOS_seg")
-    kernel = header_phase(dev, name, cfg)
+    kernel, kernel_f32 = header_phase(dev, name, cfg)
     scatters = scatter_phase(dev, cfg)
     main = main_path_phase(dev, cfg)
+    main32 = main_path_f32_phase(dev, cfg, main["ms_per_frame"])
     small_agreement_phase(dev)
     train = train_phase(dev)
     agreement = train_agreement(dev)
@@ -1850,20 +2045,24 @@ def main() -> int:
 
     kernel["launches"] = main["launches"]["fused_header_tta"]
     kernel["launches_per_frame"] = kernel["launches"] / FRAMES
+    kernel_f32["launches"] = main32["launches"]["fused_header_tta_float32"]
+    kernel_f32["launches_per_frame"] = kernel_f32["launches"] / FRAMES
+    kernel_f32["launches_in"] = "the float32 main path (main_path_float32)"
     for k in scatters:
         k["launches_per_frame"] = main["launches"][k["name"]] / FRAMES
-    for k in (kernel, *scatters):
+    for k in (kernel, kernel_f32, *scatters):
         k["launches_training_path"] = sum(
             t["launches"][k["name"]] for t in train.values())
         k["launches_cli_path"] = host["val_cli"]["launches"][k["name"]]
         k["launches_voting_path"] = voting["launches"][k["name"]]
         k["launches_dp_path"] = (dp1["launches"][k["name"]]
                                  + dp2["launches"][k["name"]])
-    print(json.dumps({"kernels": [kernel, *scatters],
+    print(json.dumps({"kernels": [kernel, kernel_f32, *scatters],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
                                     "ms_per_frame": main["ms_per_frame"],
                                     "peak_memory_gb": main["peak_gb"]},
+                      "main_path_float32": main32,
                       "train": {"points": TRAIN_POINTS,
                                 "windows": TRAIN_WINDOWS, "batch": 1,
                                 "dtype": "bfloat16",

@@ -19,8 +19,21 @@ raises. The kernels replace the TPU kernel `_pair_kernel`
   header says what the design does about each of the first version's
   limits (float32 FMAs, no overlap, 159 KB a block, a 720-position halo
   window, weights re-read).
-- float32, the card's float32 checks: the first version, float32 FMAs on
-  the CUDA cores (TF32 tensor cores would not meet their tolerances).
+- float32, every float32 config: the same implicit GEMM in 3xTF32
+  (`mma.sync` m16n8k8 tf32, each operand split in registers into
+  hi = tf32(x) and lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi
+  summed in float32), steps of one frame x 16 channels on the same ring.
+  A single TF32 product keeps 11 mantissa bits and would miss the float32
+  tolerance (rtol = atol = 1e-4); the split keeps about 22 and meets it.
+  Any C (16-byte copies when C % 4 == 0, else 4-byte ones); Cout % 8 == 0,
+  Cout <= 32. Its bound at the production shape in float32 is the
+  arithmetic: 41.88 GFLOP as three TF32 products, 0.2538 ms at 495
+  TFLOP/s, beside 839.1 MB moved, 0.2505 ms at 3.35 TB/s.
+
+Both kernels take a 16-byte aligned g_phase, frames of fewer than 2**31
+elements and the weights packed by `pack_header_weights`.
+`fused_header_tta.launches` counts the launches of both kernels,
+`fused_header_tta.launches_float32` those of the float32 kernel alone.
 
   input   g_phase (Bt*T, 4, Hh+2, Wh, V*C)  phase-outer, canonical
           orientation, one empty half-res row above and below each phase
@@ -81,7 +94,7 @@ def fused_header_reference(g_phase: torch.Tensor, k3: torch.Tensor,
 
 def pack_header_weights(k3: torch.Tensor, k1: torch.Tensor,
                         T: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 kernel's B operands, K-contiguous: k3 (3, 3, T*C, Cout) HWIO
+    """The kernels' B operands, K-contiguous: k3 (3, 3, T*C, Cout) HWIO
     -> (T, 9, Cout, C) with tap = 3 * row tap + column tap, and k1
     (1, 1, T*C, Cout) -> (T, Cout, C)."""
     kh, kw, TC, Cout = k3.shape
@@ -116,8 +129,8 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
                      pool_affine: Affine, T: int) -> torch.Tensor:
     """All four variants' DownSample2D outputs (V, Bt, Hh, Wh, Cout),
     canonical-anchored, in g_phase's dtype. CUDA tensors launch the kernel
-    of their dtype (bf16: weights packed by `pack_header_weights` first);
-    CPU tensors run `fused_header_reference`."""
+    of their dtype (weights packed by `pack_header_weights` first); CPU
+    tensors run `fused_header_reference`."""
     Bt, Hh, Wh, C, Cout = _check(g_phase, k3, k1, T)
     if g_phase.device.type == "cpu":
         return fused_header_reference(g_phase, k3, k1, conv_affine,
@@ -136,17 +149,15 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
     if bf16 and C % BF16_C_MULTIPLE:
         raise ValueError(f"bf16 fused header kernel takes C % "
                          f"{BF16_C_MULTIPLE} == 0, got C={C}")
-    if bf16 and g_phase.data_ptr() % 16:
-        raise ValueError("bf16 fused header kernel takes a 16-byte aligned "
+    if g_phase.data_ptr() % 16:
+        raise ValueError("fused header kernel takes a 16-byte aligned "
                          "g_phase")
-    if bf16 and g_phase[0].numel() >= 2 ** 31:
-        raise ValueError("bf16 fused header kernel takes frames of fewer "
-                         "than 2**31 elements (32-bit window offsets)")
+    if g_phase[0].numel() >= 2 ** 31:
+        raise ValueError("fused header kernel takes frames of fewer than "
+                         "2**31 elements (32-bit window offsets)")
     dev = g_phase.device
-    k3 = k3.to(dev, g_phase.dtype)
-    k1 = k1.to(dev, g_phase.dtype)
-    k3, k1 = (pack_header_weights(k3, k1, T) if bf16
-              else (k3.contiguous(), k1.contiguous()))
+    k3, k1 = pack_header_weights(k3.to(dev, g_phase.dtype),
+                                 k1.to(dev, g_phase.dtype), T)
     aff = [a.to(dev, torch.float32).contiguous()
            for a in (*conv_affine, *pool_affine)]
     if any(a.shape != (Cout,) for a in aff):
@@ -164,7 +175,10 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused header kernel launch failed: CUDA error {err}")
     fused_header_tta.launches += 1
+    if not bf16:
+        fused_header_tta.launches_float32 += 1
     return out
 
 
 fused_header_tta.launches = 0
+fused_header_tta.launches_float32 = 0

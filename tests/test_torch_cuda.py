@@ -6,8 +6,9 @@ neither is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: fused header float32 rtol = atol = 1e-4 (TF32 off; sums in
-another order); bfloat16 (the tensor-core kernel) rtol = atol = 1e-2
+Tolerances: fused header float32 rtol = atol = 1e-4 (TF32 off in the plain
+version; the kernel's 3xTF32 products keep about 22 mantissa bits, its sums
+in another order); bfloat16 (the tensor-core kernel) rtol = atol = 1e-2
 against the plain version run in float32 on the same bfloat16 inputs (the
 kernel rounds its output to bfloat16). The scatter kernels are bit-exact against their plain versions
 and `impl="auto"`, forward and backward: a max does not depend on order.
@@ -73,6 +74,13 @@ def _header_on(dev, dtype, args):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,shape", [
     ("float32", dict(Bt=1)), ("float32", dict(Bt=2, Hh=9, Wh=20, C=3)),
+    # float32 (3xTF32): ragged grids, chunks of 16 channels cut short by
+    # 16-byte units (C = 20) and by single channels (C = 18, 4-byte
+    # copies), Cout below 32; the production shape
+    ("float32", dict(Bt=2, C=48, Cout=24, Hh=13, Wh=33)),
+    ("float32", dict(Bt=2, C=20, Cout=8, Hh=9, Wh=20)),
+    ("float32", dict(Bt=1, C=18, Cout=16, Hh=10, Wh=17)),
+    ("float32", dict(C=64, Cout=32, Hh=256, Wh=256)),
     ("bfloat16", dict(C=64, Cout=32, Hh=32, Wh=48)),
     # grids that are no multiple of the 8 x 16 tile; chunks of 32 channels
     # cut short (C = 16, 48); Cout below the 32 the B operand holds
@@ -86,9 +94,12 @@ def test_cuda_kernel_matches_plain(cuda, dtype, shape):
     g, k3, k1, ca, pa = _header_on(
         cuda, dt, _header_inputs(np.random.RandomState(4), **shape))
     before = t_fh.fused_header_tta.launches
+    before_f32 = t_fh.fused_header_tta.launches_float32
     got = t_fh.fused_header_tta(g, k3, k1, ca, pa, 3)
     torch.cuda.synchronize()
     assert t_fh.fused_header_tta.launches == before + 1
+    assert (t_fh.fused_header_tta.launches_float32
+            == before_f32 + (dt == torch.float32))
     want = t_fh.fused_header_reference(g.float(), k3.float(), k1.float(),
                                        ca, pa, 3)
     tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
@@ -113,6 +124,26 @@ def test_cuda_bf16_kernel_ignores_the_padding_rows(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 3])
+def test_cuda_f32_kernel_ignores_the_padding_rows(cuda, C):
+    """The float32 kernel (16-byte copies at C = 64, 4-byte ones at C = 3):
+    NaN in the padding rows leaves the output bit-equal to the one with
+    zero padding, finite, and within 1e-4 of the plain version."""
+    args = _header_on(cuda, torch.float32, _header_inputs(
+        np.random.RandomState(8), Bt=2, C=C, Cout=32, Hh=19, Wh=40))
+    want = t_fh.fused_header_tta(*args, 3)
+    g = args[0].clone()
+    g[:, :, 0] = float("nan")
+    g[:, :, -1] = float("nan")
+    got = t_fh.fused_header_tta(g, *args[1:], 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(
+        got, t_fh.fused_header_reference(*args, 3), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
     g, k3, k1, ca, pa = _header_inputs(np.random.RandomState(5), Cout=12,
                                        Hh=4, Wh=8)
@@ -134,6 +165,18 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
     shifted = shifted.view(g.shape).copy_(g)  # contiguous, 2 bytes off
     with pytest.raises(ValueError):
         t_fh.fused_header_tta(shifted, k3, k1, ca, pa, 3)
+    # the float32 kernel's: Cout > 32, a g_phase 4 bytes off 16
+    with pytest.raises(ValueError):
+        t_fh.fused_header_tta(*_header_on(cuda, torch.float32, _header_inputs(
+            np.random.RandomState(5), C=3, Cout=40, Hh=4, Wh=8)), 3)
+    g, k3, k1, ca, pa = _header_on(cuda, torch.float32, _header_inputs(
+        np.random.RandomState(5), C=3, Cout=16, Hh=4, Wh=8))
+    shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)[1:]
+    shifted = shifted.view(g.shape).copy_(g)
+    before = t_fh.fused_header_tta.launches
+    with pytest.raises(ValueError):
+        t_fh.fused_header_tta(shifted, k3, k1, ca, pa, 3)
+    assert t_fh.fused_header_tta.launches == before
 
 
 @pytest.mark.cuda

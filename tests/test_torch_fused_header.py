@@ -1,12 +1,18 @@
 """The fused TTA header: the port's plain version against the JAX plain
-version and the JAX Pallas kernel in interpret mode, the bf16 kernel's
-weight packing and window arithmetic (mirrored here in torch) against the
-JAX plain version, the wrapper's dispatch and shape checks. The CUDA
-kernels' own tests, which need a card, are in `test_torch_cuda.py`.
+version and the JAX Pallas kernel in interpret mode, the kernels' weight
+packing and window arithmetic (mirrored here in torch) against the JAX
+plain version, the float32 kernel's 3xTF32 products (TF32 rounding
+emulated) against JAX's plain version and its kernel in interpret mode,
+the wrapper's dispatch and shape checks. The CUDA kernels' own tests,
+which need a card, are in `test_torch_cuda.py`.
 
 Tolerance rtol = atol = 1e-4, as `tests/test_fused_header.py`: float32
-convolutions summed in another order.
+convolutions summed in another order (and, for the 3xTF32 products, about
+22 of float32's 24 mantissa bits a product).
 """
+import itertools
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,20 +85,48 @@ def _local_tap(flip: int, k: int) -> int:
     return 2 * off + ph + 1 - flip
 
 
-def _kernel_mirror(g, k3p, k1p, ca, pa, T):
-    """The bf16 kernel's arithmetic in torch, tile by tile: stage the
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """`cvt.rna.tf32.f32`: the 13 low mantissa bits rounded to nearest,
+    ties away from zero (add half of their range to the magnitude, cut)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T as the float32 kernel forms it: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi), a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (a_lo b_lo dropped)."""
+    ah, wh = _tf32(a), _tf32(w)
+    al, wl = _tf32(a - ah), _tf32(w - wh)
+    return al @ wh.T + ah @ wl.T + ah @ wh.T
+
+
+def _mm_1xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w.T as one TF32 product a term: hi x hi alone."""
+    return _tf32(a) @ _tf32(w).T
+
+
+def _kernel_mirror(g, k3p, k1p, ca, pa, T, kch=None, product=_mm_3xtf32):
+    """The kernels' arithmetic in torch, tile by tile: stage the
     (2TR+1) x (2TW+1) full-res window at canonical origin (2*r0-1+fx,
     2*c0-1+fy), the phase of a position its row's and column's low bits,
     zero outside the grid by index (never reading the padding rows); the
     conv as one shifted window a tap times the packed (t, tap) slice; the
     pool as the 1x1 GEMM over every staged position, affine, -inf outside
-    the grid, 3x3 stride-2 max; ragged tiles cut on store."""
+    the grid, 3x3 stride-2 max; ragged tiles cut on store. Products are
+    plain float32 over all C channels at once (the bf16 kernel's layout);
+    with `kch`, the float32 kernel's: K in its order (frame t, then steps of
+    kch channels, zero past C, then the 9 taps), each product `product`.
+    Sums are float32 in torch's order: the tensor cores' own accumulation is
+    held to the tolerance on the card (`test_torch_cuda.py`)."""
     BtT, _, Hp, Wh, VC = g.shape
     Hh, C, Cout = Hp - 2, VC // 4, k3p.shape[2]
     Bt = BtT // T
     gv = g.reshape(Bt, T, 4, Hp, Wh, 4, C)
     (cs, cb), (ps, pb) = ca, pa
     i, jj = torch.arange(TR)[:, None], torch.arange(TW)[None, :]
+    steps = ([slice(None)] if kch is None
+             else [slice(k, k + kch) for k in range(0, C, kch)])
+    mm = (lambda a, w: a @ w.T) if kch is None else product
     out = torch.full((4, Bt, Hh, Wh, Cout), float("nan"))
     for v in range(4):
         fx, fy = v >> 1, v & 1
@@ -108,13 +142,13 @@ def _kernel_mirror(g, k3p, k1p, ca, pa, T):
                 win = torch.where(inside[..., None], gv[:, :, ph, h, w, v], 0.0)
                 conv = torch.zeros(Bt, TR, TW, Cout)
                 z = torch.zeros(Bt, 2 * TR + 1, 2 * TW + 1, Cout)
-                for t in range(T):
+                for t, ch in itertools.product(range(T), steps):
                     for kr in range(3):
                         for kc in range(3):
                             a = win[:, t, 2 * i + _local_tap(fx, kr),
-                                    2 * jj + _local_tap(fy, kc)]
-                            conv += a @ k3p[t, 3 * kr + kc].T
-                    z += win[:, t] @ k1p[t].T
+                                    2 * jj + _local_tap(fy, kc), ch]
+                            conv += mm(a, k3p[t, 3 * kr + kc, :, ch])
+                    z += mm(win[:, t, ..., ch], k1p[t, :, ch])
                 z = torch.where(inside[..., None], z * ps + pb, -torch.inf)
                 pooled = torch.stack([z[:, 2 * i + dr, 2 * jj + dc]
                                       for dr in range(3) for dc in range(3)])
@@ -145,6 +179,57 @@ def test_bf16_kernel_window_arithmetic_matches_jax(shape):
     got = _kernel_mirror(tg, k3p, k1p, tca, tpa, 3).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+# the float32 kernel's step: 16 float32 channels (csrc/fused_header.cu,
+# namespace f32)
+F32_KCH = 16
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Round to nearest on the 13 dropped bits, ties away from zero, carry
+    into the exponent; the result has 10 explicit mantissa bits."""
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32's spacing at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      2.0 - ulp / 2, 3.0, 0.0])
+    want = torch.tensor([one + ulp, -(one + ulp), one, 2.0, 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+    r = _tf32(torch.from_numpy(np.random.RandomState(0).randn(1000)
+                               .astype(np.float32)))
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+
+
+@pytest.mark.parametrize("shape", [
+    dict(Bt=2), dict(Bt=2, Hh=9, Wh=20, C=16), dict(Bt=2, Hh=10, Wh=20, C=3)],
+    ids=["unit", "ragged", "C3"])
+def test_f32_kernel_split_arithmetic_matches_jax(shape):
+    """The float32 kernel's window arithmetic with its 3xTF32 products in
+    its K order, all four variants, against JAX's plain version and JAX's
+    kernel in interpret mode (which takes the plain version where no row
+    tile divides Hh, as at Hh = 9), in float32. The padding rows hold NaN:
+    neither side may read them. A single TF32 product a term misses the
+    tolerance at the unit shape."""
+    g, k3, k1, ca, pa = _rand_inputs(np.random.RandomState(9), **shape)
+    jargs = _jax((g, k3, k1, ca, pa))
+    want = np.asarray(j_fh.fused_header_reference(*jargs, 3))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # JAX's note when it takes the plain version
+        want_kernel = np.asarray(j_fh.fused_header_tta(*jargs, 3,
+                                                       interpret=True))
+    g[:, :, 0] = np.nan
+    g[:, :, -1] = np.nan
+    tg, tk3, tk1, tca, tpa = _torch((g, k3, k1, ca, pa))
+    k3p, k1p = t_fh.pack_header_weights(tk3, tk1, 3)
+    got = _kernel_mirror(tg, k3p, k1p, tca, tpa, 3, kch=F32_KCH).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, want_kernel, **TOL)
+    if shape == dict(Bt=2):
+        # one TF32 product (hi x hi) does not hold the float32 tolerance
+        single = _kernel_mirror(tg, k3p, k1p, tca, tpa, 3, kch=F32_KCH,
+                                product=_mm_1xtf32).numpy()
+        assert not np.allclose(single, want, **TOL)
 
 
 def test_cpu_dispatch_is_the_plain_version():
