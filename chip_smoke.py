@@ -643,8 +643,6 @@ def scatter_phase(dev, cfg):
     then the adversarial inputs. Returns the two kernels' entries of the
     `kernels` line."""
     from streammos_tpu_torch import build
-    from streammos_tpu_torch.ops import pallas_scatter as ps
-    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
     from streammos_tpu_torch.ops.voxel_pool import _cell_ids, voxel_max_pool
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -655,9 +653,8 @@ def scatter_phase(dev, cfg):
         sites.append(dict(name=name, where=where, feat=feat, inds=inds,
                           args=(size, scale, True, split, pad)))
 
-    # the path: counts zeroed just before, read just after
-    ps.sorted_scatter_max.launches = 0
-    pv.scatter_max_vmem.launches = 0
+    # the path: counts read just before and just after
+    zero_counts()
     for s in sites:
         s["pallas"] = voxel_max_pool(s["feat"], s["inds"], *s["args"],
                                      impl="pallas")
@@ -669,8 +666,9 @@ def scatter_phase(dev, cfg):
             check(s["name"] == "full grid" and "fits_vmem" in str(e),
                   f"vmem rejected {s['name']}: {e}")
     torch.cuda.synchronize()
-    launches = {"pallas": ps.sorted_scatter_max.launches,
-                "vmem": pv.scatter_max_vmem.launches}
+    counts = read_counts()
+    launches = {"pallas": counts["sorted_scatter_max"],
+                "vmem": counts["scatter_max_vmem"]}
     check(launches == {"pallas": 5, "vmem": 4},
           f"scatter kernel launches {launches}, expected 5 and 4")
     check(sites[0]["vmem"] is None, "the full grid must fail fits_vmem")
@@ -754,30 +752,34 @@ def scatter_phase(dev, cfg):
     return entries
 
 
-def counted_kernels():
-    from streammos_tpu_torch.ops import fused_header as fh
-    from streammos_tpu_torch.ops import pallas_scatter as ps
-    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
-
-    return (fh.fused_header_tta, ps.sorted_scatter_max, pv.scatter_max_vmem)
+_COUNTS_AT_ZERO: dict = {}
 
 
 def zero_counts() -> None:
-    """Every hand kernel's launch count to 0, the float32 header's too."""
-    header, *rest = counted_kernels()
-    for fn in (header, *rest):
-        fn.launches = 0
-    header.launches_float32 = 0
+    """Start counting the hand kernels' launches from here: `read_counts`
+    reads the launch counters (`utils/profiling.py`) against this point."""
+    from streammos_tpu_torch.utils import profiling
+
+    _COUNTS_AT_ZERO.clear()
+    _COUNTS_AT_ZERO.update(profiling.counters())
 
 
 def read_counts() -> dict:
-    """Each hand kernel's launches since `zero_counts`, by name; the float32
-    header kernel's also apart, as "fused_header_tta_float32"
-    ("fused_header_tta" counts the launches of both dtypes)."""
-    header, *rest = counted_kernels()
-    counts = {fn.__name__: fn.launches for fn in (header, *rest)}
-    counts["fused_header_tta_float32"] = header.launches_float32
-    return counts
+    """Each hand kernel's launches since `zero_counts`, by the name of its
+    wrapper; the float32 header kernel's also apart, as
+    "fused_header_tta_float32" ("fused_header_tta" counts the launches of
+    both dtypes)."""
+    from streammos_tpu_torch.utils import profiling
+
+    now = profiling.counters()
+    since = {k: now.get(k, 0) - _COUNTS_AT_ZERO.get(k, 0)
+             for k in ("kernel.fused_header.bf16", "kernel.fused_header.f32",
+                       "kernel.sorted_scatter", "kernel.scatter_grid")}
+    return {"fused_header_tta": (since["kernel.fused_header.bf16"]
+                                 + since["kernel.fused_header.f32"]),
+            "sorted_scatter_max": since["kernel.sorted_scatter"],
+            "scatter_max_vmem": since["kernel.scatter_grid"],
+            "fused_header_tta_float32": since["kernel.fused_header.f32"]}
 
 
 def main_frames(cfg, dev):

@@ -21,9 +21,11 @@ from typing import Sequence
 
 import torch
 
+from streammos_tpu_torch.utils.profiling import to_device
+
 
 def _const(x: torch.Tensor, value: float) -> torch.Tensor:
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    return to_device(value, x.device, x.dtype)
 
 
 def quantize(pcds: torch.Tensor, range_x: Sequence[float],

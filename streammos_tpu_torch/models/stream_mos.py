@@ -40,6 +40,7 @@ from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
 from streammos_tpu_torch.parallel import gather_batch
+from streammos_tpu_torch.utils.profiling import span, to_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -76,9 +77,8 @@ def tta_expand(xyzi: torch.Tensor) -> torch.Tensor:
 def tta_expand_folded(xyzi: torch.Tensor) -> torch.Tensor:
     """(B, T, N, 4) -> (B, T, N, V=4, 4): the four (x, y) sign flips on a
     minor axis, in variant order (+x,+y), (+x,-y), (-x,+y), (-x,-y)."""
-    signs = torch.tensor([[x, y, 1.0, 1.0] for x in (1.0, -1.0)
-                          for y in (1.0, -1.0)], dtype=xyzi.dtype,
-                         device=xyzi.device)
+    signs = to_device([[x, y, 1.0, 1.0] for x in (1.0, -1.0)
+                       for y in (1.0, -1.0)], xyzi.device, xyzi.dtype)
     return xyzi[..., None, :] * signs
 
 
@@ -158,25 +158,30 @@ class StreamMOSNet(nn.Module):
         c0 = cfg.context_layers[0]
         B, T, N, C = points.shape
 
-        point_feat = self.point_pre(points.reshape(B * T, N, C).to(dt))
-        # every frame into the full grid (features are post-ReLU), kept as
-        # the frame-split stack the header's DownSample2D takes
-        bev = voxel_max_pool(point_feat, bev_coord.reshape(B * T, N, 3)[..., :2],
-                             (H, W), (1.0, 1.0), nonneg=True)
-        bev = bev.reshape(B, T, H, W, c0)
+        with span("smt.point_mlp"):
+            point_feat = self.point_pre(points.reshape(B * T, N, C).to(dt))
+        with span("smt.scatter.bev_full"):
+            # every frame into the full grid (features are post-ReLU), kept
+            # as the frame-split stack the header's DownSample2D takes
+            bev = voxel_max_pool(point_feat,
+                                 bev_coord.reshape(B * T, N, 3)[..., :2],
+                                 (H, W), (1.0, 1.0), nonneg=True)
+            bev = bev.reshape(B, T, H, W, c0)
         cur_bev = bev_coord[:, 0, :, :2]
         cur_rv = rv_coord[:, 0]
 
         bev_feat, point_feat_1, aux0, aux1, aux2, new_memory = self.bev_net(
             bev, cur_bev, cur_rv, memory, use_memory)
 
-        point_bev_feat = grid_to_point(bev_feat.permute(0, 2, 3, 1), cur_bev,
-                                       cfg.grid2point_scale)
-        point_feat_cur = point_feat.reshape(B, T, N, c0)[:, 0]
-        feats = [point_feat_cur, point_bev_feat, point_feat_1]
-        out = {"aux0": aux0.float(), "aux1": aux1.float(),
-               "aux2": aux2.float(), "memory": new_memory}
-        out["pred"], bf = self._heads(feats)
+        with span("smt.gather.point"):
+            point_bev_feat = grid_to_point(bev_feat.permute(0, 2, 3, 1),
+                                           cur_bev, cfg.grid2point_scale)
+        with span("smt.heads"):
+            point_feat_cur = point_feat.reshape(B, T, N, c0)[:, 0]
+            feats = [point_feat_cur, point_bev_feat, point_feat_1]
+            out = {"aux0": aux0.float(), "aux1": aux1.float(),
+                   "aux2": aux2.float(), "memory": new_memory}
+            out["pred"], bf = self._heads(feats)
         if bf is not None:
             out["bf_pred"] = bf
         return out
@@ -189,40 +194,45 @@ class StreamMOSNet(nn.Module):
         c0 = cfg.context_layers[0]
         Bt, T, N, V, C = points.shape
 
-        # per-point MLP over all frames, variants folded on channels
-        point_feat = self.point_pre(points.reshape(Bt * T, N, V * C).to(dt))
+        with span("smt.point_mlp"):
+            # per-point MLP over all frames, variants folded on channels
+            point_feat = self.point_pre(
+                points.reshape(Bt * T, N, V * C).to(dt))
 
-        coords0 = bev_coord[..., 0, :].reshape(Bt * T, N, 3)
-        if cfg.fused_header:
-            # full-grid scatter straight into the fused header's
-            # phase-outer, row-padded layout (canonical cell ids; features
-            # are post-ReLU)
-            bev = voxel_max_pool(point_feat, coords0[..., :2], (H, W),
-                                 (1.0, 1.0), nonneg=True, phase_split="outer",
-                                 row_pad=1)
-            header_T = T
-        else:
-            # every variant's full grid in its own orientation, then the
-            # frame-split header on batch V*Bt
-            bev = voxel_max_pool_tta(point_feat, coords0, (H, W), (1.0, 1.0),
-                                     "bev", nonneg=True)
-            bev = bev.reshape(V * Bt, T, H, W, c0)
-            header_T = 0
+        with span("smt.scatter.bev_full"):
+            coords0 = bev_coord[..., 0, :].reshape(Bt * T, N, 3)
+            if cfg.fused_header:
+                # full-grid scatter straight into the fused header's
+                # phase-outer, row-padded layout (canonical cell ids;
+                # features are post-ReLU)
+                bev = voxel_max_pool(point_feat, coords0[..., :2], (H, W),
+                                     (1.0, 1.0), nonneg=True,
+                                     phase_split="outer", row_pad=1)
+                header_T = T
+            else:
+                # every variant's full grid in its own orientation, then
+                # the frame-split header on batch V*Bt
+                bev = voxel_max_pool_tta(point_feat, coords0, (H, W),
+                                         (1.0, 1.0), "bev", nonneg=True)
+                bev = bev.reshape(V * Bt, T, H, W, c0)
+                header_T = 0
         cur_bev = bev_coord[:, 0, :, 0, :2]
         cur_rv = rv_coord[:, 0, :, 0]
 
         bev_feat, point_feat_1, aux0, aux1, aux2, new_memory = self.bev_net(
             bev, cur_bev, cur_rv, memory, use_memory, header_T)
 
-        g = bev_feat.permute(0, 2, 3, 1)
-        point_bev_feat = grid_to_point_tta(
-            g.reshape(V_TTA, Bt, *g.shape[1:]), cur_bev, cfg.grid2point_scale,
-            "bev")
-        point_feat_cur = point_feat.reshape(Bt, T, N, V * c0)[:, 0]
-        feats = [point_feat_cur, point_bev_feat, point_feat_1]
-        out = {"aux0": aux0.float(), "aux1": aux1.float(),
-               "aux2": aux2.float(), "memory": new_memory}
-        pred, bf = self._heads(feats)
+        with span("smt.gather.point"):
+            g = bev_feat.permute(0, 2, 3, 1)
+            point_bev_feat = grid_to_point_tta(
+                g.reshape(V_TTA, Bt, *g.shape[1:]), cur_bev,
+                cfg.grid2point_scale, "bev")
+        with span("smt.heads"):
+            point_feat_cur = point_feat.reshape(Bt, T, N, V * c0)[:, 0]
+            feats = [point_feat_cur, point_bev_feat, point_feat_1]
+            out = {"aux0": aux0.float(), "aux1": aux1.float(),
+                   "aux2": aux2.float(), "memory": new_memory}
+            pred, bf = self._heads(feats)
         out["pred_folded"] = pred
         out["pred"] = pred.reshape(Bt, N, V, cfg.class_num)
         if bf is not None:

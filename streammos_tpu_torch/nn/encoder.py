@@ -25,6 +25,7 @@ from streammos_tpu_torch.ops.sample import grid_to_point
 from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
+from streammos_tpu_torch.utils.profiling import span
 
 
 class ConvStage(nn.Sequential):
@@ -107,63 +108,75 @@ class MultiViewEncoder(nn.Module):
         cfg = self.cfg
         rv_h, rv_w = cfg.voxel.rv_shape
 
-        def gather(grid, coords, scale, kind):
-            g = _nhwc(grid)
-            if not self.tta_fold:
-                return grid_to_point(g, coords, scale)
-            g = g.reshape(V_TTA, g.shape[0] // V_TTA, *g.shape[1:])
-            return grid_to_point_tta(g, coords, scale, kind)
+        def gather(site, grid, coords, scale, kind):
+            with span("smt.gather." + site):
+                g = _nhwc(grid)
+                if not self.tta_fold:
+                    return grid_to_point(g, coords, scale)
+                g = g.reshape(V_TTA, g.shape[0] // V_TTA, *g.shape[1:])
+                return grid_to_point_tta(g, coords, scale, kind)
 
-        def scatter(pts, coords, out_size, scale, kind):
+        def scatter(site, pts, coords, out_size, scale, kind):
             # gathered features are blends of post-ReLU grids: non-negative
-            if not self.tta_fold:
-                return _nchw(voxel_max_pool(pts, coords, out_size, scale,
-                                            nonneg=True))
-            out = voxel_max_pool_tta(pts, coords, out_size, scale, kind,
-                                     nonneg=True)
-            return _nchw(out.reshape(-1, *out.shape[2:]))
+            with span("smt.scatter." + site):
+                if not self.tta_fold:
+                    return _nchw(voxel_max_pool(pts, coords, out_size, scale,
+                                                nonneg=True))
+                out = voxel_max_pool_tta(pts, coords, out_size, scale, kind,
+                                         nonneg=True)
+                return _nchw(out.reshape(-1, *out.shape[2:]))
 
         # stage 0: full grid -> 1/2 (the fused header when folded), cascade
         # through the RV
-        x0 = self.header_bev(bev_in, header_phase_T)
-        x0_point = gather(x0, bev_coord, (0.5, 0.5), "bev")
-        x0_rv = scatter(x0_point, rv_coord, (rv_h // 2, rv_w // 2), (0.5, 0.5), "rv")
-        x0_rv = self.header_rv(x0_rv)
-        x0_point = gather(x0_rv, rv_coord, (0.5, 0.5), "rv")
+        with span("smt.encoder.header"):
+            x0 = self.header_bev(bev_in, header_phase_T)
+        x0_point = gather("bev0", x0, bev_coord, (0.5, 0.5), "bev")
+        x0_rv = scatter("rv0", x0_point, rv_coord, (rv_h // 2, rv_w // 2),
+                        (0.5, 0.5), "rv")
+        with span("smt.encoder.header_rv"):
+            x0_rv = self.header_rv(x0_rv)
+        x0_point = gather("rv0", x0_rv, rv_coord, (0.5, 0.5), "rv")
         h0, w0 = x0.shape[2], x0.shape[3]
-        x0_bev = scatter(x0_point, bev_coord, (h0, w0), (0.5, 0.5), "bev")
-        x0 = torch.cat([x0, x0_bev], dim=1)
+        x0_bev = scatter("bev0", x0_point, bev_coord, (h0, w0), (0.5, 0.5),
+                         "bev")
 
-        # stage 1: 1/2 -> 1/4
-        x1 = self.res1_bev(x0)
-        x1_point = gather(x1, bev_coord, (0.25, 0.25), "bev")
-        x1_rv = scatter(x1_point, rv_coord, (rv_h // 4, rv_w // 4), (0.25, 0.25), "rv")
-        x1_rv = self.res1_rv(x1_rv)
-        x1_point = gather(x1_rv, rv_coord, (0.25, 0.25), "rv")
+        # stage 1: 1/2 -> 1/4 (the join of stage 0's two halves is its input)
+        with span("smt.encoder.res1_bev"):
+            x0 = torch.cat([x0, x0_bev], dim=1)
+            x1 = self.res1_bev(x0)
+        x1_point = gather("bev1", x1, bev_coord, (0.25, 0.25), "bev")
+        x1_rv = scatter("rv1", x1_point, rv_coord, (rv_h // 4, rv_w // 4),
+                        (0.25, 0.25), "rv")
+        with span("smt.encoder.res1_rv"):
+            x1_rv = self.res1_rv(x1_rv)
+        x1_point = gather("rv1", x1_rv, rv_coord, (0.25, 0.25), "rv")
         h1, w1 = x1.shape[2], x1.shape[3]
-        x1_bev = scatter(x1_point, bev_coord, (h1, w1), (0.25, 0.25), "bev")
-        x1 = torch.cat([x1, x1_bev], dim=1)
+        x1_bev = scatter("bev1", x1_point, bev_coord, (h1, w1), (0.25, 0.25),
+                         "bev")
 
         # stage 2: 1/4 -> 1/8, deformable-attention temporal fusion
-        x2 = self.res2(x1)
-        B, d, hq, wq = x2.shape
-        if use_memory:
-            query = memory.reshape(B, hq * wq, d)
-        else:
-            query = self.query_embed.weight[None].to(memory.dtype).expand(
-                B, hq * wq, d)
-        src = _nhwc(x2).reshape(B, hq * wq, d)
-        fused = self.deformattn_module(query.to(x2.dtype), src, (hq, wq))
-        new_memory = fused.reshape(B, hq, wq, d).float()
-        x2 = _nchw(fused.reshape(B, hq, wq, d))
+        with span("smt.encoder.res2"):
+            x1 = torch.cat([x1, x1_bev], dim=1)
+            x2 = self.res2(x1)
+        with span("smt.attention"):
+            B, d, hq, wq = x2.shape
+            if use_memory:
+                query = memory.reshape(B, hq * wq, d)
+            else:
+                query = self.query_embed.weight[None].to(memory.dtype).expand(
+                    B, hq * wq, d)
+            src = _nhwc(x2).reshape(B, hq * wq, d)
+            fused = self.deformattn_module(query.to(x2.dtype), src, (hq, wq))
+            new_memory = fused.reshape(B, hq, wq, d).float()
+            x2 = _nchw(fused.reshape(B, hq, wq, d))
 
         # parameter-free decoder at 1/2 resolution
-        res_1 = _nchw(resize_bilinear_align_corners(_nhwc(x1), (h0, w0)))
-        res_2 = _nchw(resize_bilinear_align_corners(_nhwc(x2), (h0, w0)))
-        out = torch.cat([x0, res_1, res_2], dim=1)
-        out = self.conv_2(self.conv_1(out))
-
-        aux = [_nhwc(head(res)) for head, res in
-               ((self.aux_head1, x0), (self.aux_head2, res_1),
-                (self.aux_head3, res_2))]
+        with span("smt.encoder.decoder"):
+            res_1 = _nchw(resize_bilinear_align_corners(_nhwc(x1), (h0, w0)))
+            res_2 = _nchw(resize_bilinear_align_corners(_nhwc(x2), (h0, w0)))
+            out = torch.cat([x0, res_1, res_2], dim=1)
+            out = self.conv_2(self.conv_1(out))
+            aux = [_nhwc(head(res)) for head, res in
+                   ((self.aux_head1, x0), (self.aux_head2, res_1),
+                    (self.aux_head3, res_2))]
         return out, x1_point, aux[0], aux[1], aux[2], new_memory

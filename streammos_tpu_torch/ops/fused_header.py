@@ -32,8 +32,8 @@ raises. The kernels replace the TPU kernel `_pair_kernel`
 
 Both kernels take a 16-byte aligned g_phase, frames of fewer than 2**31
 elements and the weights packed by `pack_header_weights`.
-`fused_header_tta.launches` counts the launches of both kernels,
-`fused_header_tta.launches_float32` those of the float32 kernel alone.
+Each launch counts in `utils/profiling.py`'s counters, as
+``kernel.fused_header.bf16`` or ``kernel.fused_header.f32``.
 
   input   g_phase (Bt*T, 4, Hh+2, Wh, V*C)  phase-outer, canonical
           orientation, one empty half-res row above and below each phase
@@ -53,6 +53,7 @@ import torch.nn.functional as F
 
 from streammos_tpu_torch.build import load_library
 from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
+from streammos_tpu_torch.utils import profiling
 
 P_PHASE = 4
 MAX_COUT = 32  # both kernels: Cout % 8 == 0, Cout <= 32
@@ -174,11 +175,6 @@ def fused_header_tta(g_phase: torch.Tensor, k3: torch.Tensor,
                  Bt, T, Hh, Wh, C, Cout, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"fused header kernel launch failed: CUDA error {err}")
-    fused_header_tta.launches += 1
-    if not bf16:
-        fused_header_tta.launches_float32 += 1
+    profiling.count("kernel.fused_header.bf16" if bf16
+                    else "kernel.fused_header.f32")
     return out
-
-
-fused_header_tta.launches = 0
-fused_header_tta.launches_float32 = 0

@@ -23,6 +23,7 @@ import functools
 import torch
 
 from streammos_tpu_torch.build import load_library
+from streammos_tpu_torch.utils import profiling
 
 
 def sorted_scatter_max_reference(feats_sorted: torch.Tensor,
@@ -124,11 +125,8 @@ def sorted_scatter_max(feats_sorted: torch.Tensor, ids_sorted: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sorted scatter kernel launch failed: CUDA error "
                            f"{err}")
-    sorted_scatter_max.launches += 1
+    profiling.count("kernel.sorted_scatter")
     return out
-
-
-sorted_scatter_max.launches = 0
 
 
 def scatter_max_pallas(feat: torch.Tensor, flat_ids: torch.Tensor,

@@ -26,6 +26,7 @@ import functools
 import torch
 
 from streammos_tpu_torch.build import load_library
+from streammos_tpu_torch.utils import profiling
 
 BN = 1024  # points per grid step of the TPU kernel (in the copy budget)
 VMEM_TOTAL = 127 * 1024 * 1024
@@ -126,8 +127,5 @@ def scatter_max_vmem(feat: torch.Tensor, ids: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"grid scatter kernel launch failed: CUDA error "
                            f"{err}")
-    scatter_max_vmem.launches += 1
+    profiling.count("kernel.scatter_grid")
     return out
-
-
-scatter_max_vmem.launches = 0

@@ -8,6 +8,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from streammos_tpu_torch.utils.profiling import to_device
+
 
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -32,7 +34,7 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     H, W = out_hw
     if (h, w) == (H, W):
         return x
-    mh = torch.from_numpy(_interp_matrix(h, H)).to(x.device, x.dtype)
-    mw = torch.from_numpy(_interp_matrix(w, W)).to(x.device, x.dtype)
+    mh = to_device(_interp_matrix(h, H), x.device, x.dtype)
+    mw = to_device(_interp_matrix(w, W), x.device, x.dtype)
     x = torch.einsum("Hh,bhwc->bHwc", mh, x)
     return torch.einsum("Ww,bhwc->bhWc", mw, x)

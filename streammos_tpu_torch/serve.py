@@ -16,6 +16,7 @@ from streammos_tpu_torch.models.stream_mos import (V_TTA, StreamMOSNet,
                                                    featurize, memory_shape,
                                                    tta_expand_folded,
                                                    tta_scores)
+from streammos_tpu_torch.utils.profiling import count, span, to_device
 from streammos_tpu_torch.weights import init_random_, load_state_dict_checked
 
 
@@ -56,14 +57,18 @@ def eval_step(model: StreamMOSNet, xyzi: torch.Tensor, memory: torch.Tensor,
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """One frame: xyzi (Bt, T, N, 4) raw points on the model's device ->
     (scores (Bt, N, classes), bf_scores or None, new_memory). Scores are
-    the TTA mean of the per-variant softmax."""
+    the TTA mean of the per-variant softmax. Counted in ``smt.steps``."""
     cfg = model.cfg
-    batch = featurize(tta_expand_folded(xyzi), cfg)
-    out = model(batch["points"], batch["bev_coord"], batch["rv_coord"],
-                memory, use_memory)
-    scores = tta_scores(out["pred_folded"], cfg.class_num)
-    bf_scores = (tta_scores(out["bf_pred_folded"], cfg.class_num)
-                 if "bf_pred_folded" in out else None)
+    count("smt.steps")
+    with span("smt.step"):
+        with span("smt.featurize"):
+            batch = featurize(tta_expand_folded(xyzi), cfg)
+        out = model(batch["points"], batch["bev_coord"], batch["rv_coord"],
+                    memory, use_memory)
+        with span("smt.heads.scores"):
+            scores = tta_scores(out["pred_folded"], cfg.class_num)
+            bf_scores = (tta_scores(out["bf_pred_folded"], cfg.class_num)
+                         if "bf_pred_folded" in out else None)
     return scores, bf_scores, out["memory"]
 
 
@@ -85,8 +90,8 @@ def stream_eval(model: StreamMOSNet, frames: Iterable[Mapping],
         else:
             fresh = n == 0 or frame["seq_id"] != prev_seq
         prev_seq = frame["seq_id"]
-        xyzi = torch.as_tensor(frame["xyzi"], dtype=torch.float32,
-                               device=device)[None]
+        with span("smt.input"):
+            xyzi = to_device(frame["xyzi"], device, torch.float32)[None]
         scores, bf_scores, memory = eval_step(model, xyzi, memory,
                                               use_memory=not fresh)
         yield scores[0], None if bf_scores is None else bf_scores[0]

@@ -1,26 +1,57 @@
-"""Profiling and timing utilities.
+"""Profiling: the eval step's spans, the process's counters, and the trace
+that holds the spans.
 
-Counterpart of `streammos_tpu/utils/profiling.py`:
-
+* :func:`span` — a named span (``smt.<bucket>[.<site>]``) at a call into a
+  layer of the eval step: the profiler's own `record_function` while a
+  `torch.profiler` session records, so the span is a ``user_annotation``
+  event on the clock of the trace's device events; otherwise one shared
+  no-op context, after a single check of the profiler's flag;
+* :func:`count` / :func:`counters` — named counts, always on: the hand
+  kernels' launches (``kernel.*``), eval steps (``smt.steps``) and the
+  host-built tensors the eval step copies to the device (``h2d.copies``);
+* :func:`to_device` — `torch.as_tensor` of host data, counted as one
+  ``h2d.copies`` (on a card, one pageable host-to-device copy);
 * :func:`trace` — a `torch.profiler` context over the host and, on a
-  card, the device, writing a Chrome trace that TensorBoard's profiler
-  plugin and Perfetto load;
-* :func:`measure_rtt` — the median round trip of a scalar ``.item()``;
-* :func:`chained_time` — seconds per call of a step, from K chained calls
-  whose carry forces the data dependence: timed with CUDA events when the
-  carry lies on a card (kernels are launched asynchronously, so a host
-  clock would time the launches), with ``perf_counter`` on the CPU.
+  card, the device, writing a Chrome trace, spans included, that
+  TensorBoard's profiler plugin and Perfetto load.
 """
 from __future__ import annotations
 
 import contextlib
-import time
-from typing import Callable
+from typing import Dict
 
-import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-from torch.utils._pytree import tree_leaves
+from torch.profiler import (ProfilerActivity, profile, record_function,
+                            tensorboard_trace_handler)
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+NO_SPAN = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A context that marks the block as span `name` in a recording
+    profiler's trace; `NO_SPAN` when no profiler records."""
+    if _profiler_enabled():
+        return record_function(name)
+    return NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """Every count since the process started (a copy)."""
+    return dict(_COUNTS)
+
+
+def to_device(data, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(data, dtype=dtype, device=device)``, counted as one
+    ``h2d.copies`` unless `data` is a tensor on a device already."""
+    if not (isinstance(data, torch.Tensor) and data.device.type != "cpu"):
+        count("h2d.copies")
+    return torch.as_tensor(data, dtype=dtype, device=device)
 
 
 @contextlib.contextmanager
@@ -34,48 +65,3 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
-
-
-def measure_rtt(reps: int = 5, device="cuda") -> float:
-    """Median seconds of a host <-> `device` scalar round trip: a sum
-    launched and its value read back with ``.item()``."""
-    z = torch.zeros((8, 8), device=device)
-    z.sum().item()
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        z.sum().item()
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts))
-
-
-def chained_time(step: Callable, init, K: int = 4, reps: int = 3) -> float:
-    """Median seconds per iteration of ``step`` (carry -> carry) over `reps`
-    runs of K chained calls, after one untimed run. The chaining must be
-    real: feed the step's output back as its input."""
-    leaves = [x for x in tree_leaves(init) if isinstance(x, torch.Tensor)]
-    on_card = any(x.is_cuda for x in leaves)
-
-    def chained():
-        c = init
-        for _ in range(K):
-            c = step(c)
-        return c
-
-    chained()
-    ts = []
-    for _ in range(reps):
-        if on_card:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            chained()
-            end.record()
-            torch.cuda.synchronize()
-            ts.append(start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            chained()
-            ts.append(time.perf_counter() - t0)
-    return float(np.median(ts)) / K

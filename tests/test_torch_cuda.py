@@ -24,6 +24,7 @@ from streammos_tpu_torch.ops import fused_header as t_fh
 from streammos_tpu_torch.ops import pallas_scatter as t_sorted
 from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
 from streammos_tpu_torch.ops import voxel_pool as t_vp
+from streammos_tpu_torch.utils import profiling
 
 
 def _by_path(name):
@@ -37,6 +38,13 @@ def _by_path(name):
 
 
 cases = _by_path("scatter_cases")
+
+
+def _launched(before):
+    """The hand kernels' launches since the counters read `before`."""
+    now = profiling.counters()
+    return {k: now[k] - before.get(k, 0) for k in now
+            if k.startswith("kernel.") and now[k] != before.get(k, 0)}
 
 
 def _header_inputs(rng, T=3, C=8, Cout=16, Bt=1, Hh=16, Wh=128):
@@ -93,13 +101,11 @@ def test_cuda_kernel_matches_plain(cuda, dtype, shape):
     dt = getattr(torch, dtype)
     g, k3, k1, ca, pa = _header_on(
         cuda, dt, _header_inputs(np.random.RandomState(4), **shape))
-    before = t_fh.fused_header_tta.launches
-    before_f32 = t_fh.fused_header_tta.launches_float32
+    before = profiling.counters()
     got = t_fh.fused_header_tta(g, k3, k1, ca, pa, 3)
     torch.cuda.synchronize()
-    assert t_fh.fused_header_tta.launches == before + 1
-    assert (t_fh.fused_header_tta.launches_float32
-            == before_f32 + (dt == torch.float32))
+    assert _launched(before) == {
+        "kernel.fused_header." + ("f32" if dt == torch.float32 else "bf16"): 1}
     want = t_fh.fused_header_reference(g.float(), k3.float(), k1.float(),
                                        ca, pa, 3)
     tol = dict(rtol=1e-4, atol=1e-4) if dt == torch.float32 else \
@@ -173,10 +179,10 @@ def test_cuda_kernel_rejects_what_it_cannot_take(cuda):
         np.random.RandomState(5), C=3, Cout=16, Hh=4, Wh=8))
     shifted = torch.empty(g.numel() + 1, dtype=g.dtype, device=cuda)[1:]
     shifted = shifted.view(g.shape).copy_(g)
-    before = t_fh.fused_header_tta.launches
+    before = profiling.counters()
     with pytest.raises(ValueError):
         t_fh.fused_header_tta(shifted, k3, k1, ca, pa, 3)
-    assert t_fh.fused_header_tta.launches == before
+    assert _launched(before) == {}
 
 
 @pytest.mark.cuda
@@ -225,10 +231,10 @@ def test_sorted_scatter_kernel_matches_plain(cuda, dtype, n_cells, C):
     the 16-byte and the one-channel paths."""
     feats, ids = _sorted_rows(np.random.default_rng(n_cells), 5000, C,
                               n_cells, cuda, getattr(torch, dtype))
-    before = t_sorted.sorted_scatter_max.launches
+    before = profiling.counters()
     got = t_sorted.sorted_scatter_max(feats, ids, n_cells)
     torch.cuda.synchronize()
-    assert t_sorted.sorted_scatter_max.launches == before + 1
+    assert _launched(before) == {"kernel.sorted_scatter": 1}
     want = t_sorted.sorted_scatter_max_reference(feats, ids, n_cells)
     assert (want < 0).any()
     assert torch.equal(got, want)
@@ -246,10 +252,10 @@ def test_copy_scatter_kernel_matches_plain(cuda, dtype, B, N, cells, C):
         np.float32)).to(cuda, getattr(torch, dtype))
     ids = torch.from_numpy(rng.integers(-cells, 2 * cells, (B, N)).astype(
         np.int32)).to(cuda)
-    before = t_vmem.scatter_max_vmem.launches
+    before = profiling.counters()
     got = t_vmem.scatter_max_vmem(feat, ids, cells)
     torch.cuda.synchronize()
-    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert _launched(before) == {"kernel.scatter_grid": 1}
     assert torch.equal(got, t_vmem.scatter_max_vmem_reference(feat, ids, cells))
 
 
@@ -275,10 +281,10 @@ def test_sorted_scatter_kernel_adversarial(cuda, kind, dtype, C):
     dt = getattr(torch, dtype)
     feats = torch.from_numpy(rows).to(cuda, dt)
     tids = torch.from_numpy(ids).to(cuda)
-    before = t_sorted.sorted_scatter_max.launches
+    before = profiling.counters()
     got = t_sorted.sorted_scatter_max(feats, tids, n_cells)
     torch.cuda.synchronize()
-    assert t_sorted.sorted_scatter_max.launches == before + 1
+    assert _launched(before) == {"kernel.sorted_scatter": 1}
     want = t_sorted.sorted_scatter_max_reference(feats, tids, n_cells)
     assert torch.equal(got, want)
     assert (want[-1] == 0).all()
@@ -299,10 +305,10 @@ def test_grid_scatter_kernel_adversarial(cuda, kind, dtype, C):
     dt = getattr(torch, dtype)
     feat = torch.from_numpy(np.stack([rows, rows[perm]])).to(cuda, dt)
     tids = torch.from_numpy(np.stack([ids, ids[perm]])).to(cuda)
-    before = t_vmem.scatter_max_vmem.launches
+    before = profiling.counters()
     got = t_vmem.scatter_max_vmem(feat, tids, cells)
     torch.cuda.synchronize()
-    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert _launched(before) == {"kernel.scatter_grid": 1}
     assert torch.equal(got, t_vmem.scatter_max_vmem_reference(feat, tids, cells))
     assert (got[:, -1] == 0).all()
 
@@ -319,19 +325,19 @@ def test_scatter_kernels_edge_sizes(cuda, dtype):
         ids = torch.zeros(P, dtype=torch.int32)
         ids[P // 2:] = n_cells  # sentinel rows, sorted to the end
         feats, tids = rows.to(cuda, dt), ids.to(cuda)
-        before = t_sorted.sorted_scatter_max.launches
+        before = profiling.counters()
         got = t_sorted.sorted_scatter_max(feats, tids, n_cells)
         torch.cuda.synchronize()
-        assert t_sorted.sorted_scatter_max.launches == before + 1
+        assert _launched(before) == {"kernel.sorted_scatter": 1}
         want = t_sorted.sorted_scatter_max_reference(feats, tids, n_cells)
         assert torch.equal(got, want), (P, n_cells, C)
         assert P == 0 or (got[0] < 0).all()
     feat = torch.empty((2, 0, 128), dtype=dt, device=cuda)
-    before = t_vmem.scatter_max_vmem.launches
+    before = profiling.counters()
     got = t_vmem.scatter_max_vmem(
         feat, torch.empty((2, 0), dtype=torch.int32, device=cuda), 640)
     torch.cuda.synchronize()
-    assert t_vmem.scatter_max_vmem.launches == before + 1
+    assert _launched(before) == {"kernel.scatter_grid": 1}
     assert got.shape == (2, 640, 128) and (got == 0).all()
 
 
@@ -422,16 +428,13 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
         model = serve.build_model(cfg, device=dev, seed=0)
         ds = EvalDataset(cfg.val, seq_ids=[0, 8])
         root = tmp_path / str(dev)
-        t_fh.fused_header_tta.launches = 0
-        t_sorted.sorted_scatter_max.launches = 0
-        t_vmem.scatter_max_vmem.launches = 0
+        before = profiling.counters()
         results[str(dev)] = evaluate.stream_eval(
             cfg, cfg.val, model, with_refine=True, with_labels=True,
             logger=logging.getLogger("test"), dataset=ds, save_root=str(root))
         if dev != "cpu":
-            assert t_fh.fused_header_tta.launches == len(ds) == 8
-            assert t_sorted.sorted_scatter_max.launches == 0
-            assert t_vmem.scatter_max_vmem.launches == 0
+            assert len(ds) == 8
+            assert _launched(before) == {"kernel.fused_header.f32": 8}
         labels[str(dev)] = np.concatenate([
             np.fromfile(root / s / "predictions" / f"{i:06d}.label",
                         dtype=np.uint32)
