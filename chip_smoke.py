@@ -1621,10 +1621,12 @@ def val_cli_phase(seqs: str, work: str):
     config's seed: CUDA events around each `serve.eval_step`, host wall of
     the stream (load, step, argmax to the host, `.label` written), both
     a frame after the first; launch counts zeroed just before and read
-    just after."""
+    just after: one header launch a frame, and one more for the eager
+    warm-up before the carried step's CUDA graphs are captured."""
     from streammos_tpu_torch import serve
     from streammos_tpu_torch.tools import val as val_cli
     from streammos_tpu_torch.train import evaluate
+    from streammos_tpu_torch.utils import profiling
     from streammos_tpu_torch.utils.logging import config_logger
 
     frames = DATA_FRAMES["08"]
@@ -1658,6 +1660,8 @@ def val_cli_phase(seqs: str, work: str):
         result = val_cli.run_eval(cfg, args, True, logger)
         torch.cuda.synchronize()
         launches = read_counts()
+        captures = (profiling.counters().get("graph.captures", 0)
+                    - _COUNTS_AT_ZERO.get("graph.captures", 0))
     finally:
         serve.eval_step, evaluate.stream_eval = step, stream
         os.chdir(cwd)
@@ -1680,8 +1684,10 @@ def val_cli_phase(seqs: str, work: str):
     miou = float(record[0].split("moving_iou: ")[1].split(";")[0])
     check(np.isfinite(miou) and np.isfinite(result["moving_iou"]),
           f"moving_iou {miou}")
-    check(launches["fused_header_tta"] == frames,
-          f"CLI path header launches {launches} != {frames} frames")
+    check(captures == 1, f"CLI path captured {captures} step graphs")
+    check(launches["fused_header_tta"] == frames + captures,
+          f"CLI path header launches {launches} != {frames} frames + "
+          f"{captures} warm-up")
     check(launches["sorted_scatter_max"] == 0
           and launches["scatter_max_vmem"] == 0,
           f"CLI path scatter launches {launches}")

@@ -8,7 +8,8 @@ reordered or re-rounded formula moves points near a cell boundary into the
 neighbouring cell. XLA compiles a division by a constant into a multiply by
 its float32 reciprocal, so the port multiplies by that reciprocal too; with
 it `quantize` agrees bit for bit with the jitted JAX function. Python
-constants enter as float32 tensors on the input's device.
+constants enter as tensors of the input's dtype on its device, built once
+(`profiling.constant`).
 
 `sphere_quantize` cannot agree bit for bit: XLA:CPU's float32 sqrt-of-sum and
 asin differ from torch's in the last place for a few percent of points, so a
@@ -21,11 +22,13 @@ from typing import Sequence
 
 import torch
 
-from streammos_tpu_torch.utils.profiling import to_device
+from streammos_tpu_torch.utils.profiling import constant
 
 
 def _const(x: torch.Tensor, value: float) -> torch.Tensor:
-    return to_device(value, x.device, x.dtype)
+    # keyed by the exact double (0.0 and -0.0 compare equal)
+    return constant(float.fromhex, float(value).hex(), device=x.device,
+                    dtype=x.dtype)
 
 
 def quantize(pcds: torch.Tensor, range_x: Sequence[float],

@@ -40,7 +40,7 @@ from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
 from streammos_tpu_torch.parallel import gather_batch
-from streammos_tpu_torch.utils.profiling import span, to_device
+from streammos_tpu_torch.utils.profiling import constant, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -74,11 +74,14 @@ def tta_expand(xyzi: torch.Tensor) -> torch.Tensor:
                       for x in (1.0, -1.0) for y in (1.0, -1.0)], dim=0)
 
 
+def _tta_signs():
+    return [[x, y, 1.0, 1.0] for x in (1.0, -1.0) for y in (1.0, -1.0)]
+
+
 def tta_expand_folded(xyzi: torch.Tensor) -> torch.Tensor:
     """(B, T, N, 4) -> (B, T, N, V=4, 4): the four (x, y) sign flips on a
     minor axis, in variant order (+x,+y), (+x,-y), (-x,+y), (-x,-y)."""
-    signs = to_device([[x, y, 1.0, 1.0] for x in (1.0, -1.0)
-                       for y in (1.0, -1.0)], xyzi.device, xyzi.dtype)
+    signs = constant(_tta_signs, device=xyzi.device, dtype=xyzi.dtype)
     return xyzi[..., None, :] * signs
 
 
@@ -134,6 +137,14 @@ class StreamMOSNet(nn.Module):
                                      cfg.class_num, fold, cfg.dropout_rate)
         if with_refine:
             self.refine = RefineBranch(cfg, fused_in, fold)
+        # the carried eval step's CUDA graphs by key (`serve.step_graph`)
+        self.step_graphs = {}
+
+    def _apply(self, fn, *args, **kwargs):
+        # the graphs read the weights where they were: a move or a cast
+        # (`to`, `half`, ...) drops them
+        self.step_graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     def forward(self, points, bev_coord, rv_coord, memory,
                 use_memory: bool) -> Dict[str, torch.Tensor]:

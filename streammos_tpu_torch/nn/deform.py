@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from streammos_tpu_torch.nn.blocks import Dropout, Linear
 from streammos_tpu_torch.ops.deform_attn import deform_attn_sample
-from streammos_tpu_torch.utils.profiling import to_device
+from streammos_tpu_torch.utils.profiling import constant
 
 
 def rotational_offset_bias(n_heads: int, n_points: int) -> np.ndarray:
@@ -59,7 +59,8 @@ class MSDeformAttn(nn.Module):
         value = self.value_proj(src).reshape(B, H, W, M, C // M)
         offsets = self.sampling_offsets(query).reshape(B, Lq, M, P, 2)
         attn = torch.softmax(self.attention_weights(query).reshape(B, Lq, M, P), dim=-1)
-        normalizer = to_device([W, H], query.device, query.dtype)
+        normalizer = constant(list, (W, H), device=query.device,
+                              dtype=query.dtype)
         loc = ref_points[None, :, None, None, :] + offsets / normalizer
         return self.output_proj(deform_attn_sample(value, loc, attn))
 
@@ -104,8 +105,8 @@ class DeformAttnModule(nn.Module):
 
     def forward(self, query: torch.Tensor, src: torch.Tensor,
                 spatial_hw: Tuple[int, int]) -> torch.Tensor:
-        refs = to_device(reference_points(spatial_hw), query.device,
-                         query.dtype)
+        refs = constant(reference_points, tuple(spatial_hw),
+                        device=query.device, dtype=query.dtype)
         for layer in self.deformattn_layers:
             query = layer(query, refs, src, spatial_hw)
         return query

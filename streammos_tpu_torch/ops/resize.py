@@ -8,7 +8,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from streammos_tpu_torch.utils.profiling import to_device
+from streammos_tpu_torch.utils.profiling import constant
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,7 +34,7 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     H, W = out_hw
     if (h, w) == (H, W):
         return x
-    mh = to_device(_interp_matrix(h, H), x.device, x.dtype)
-    mw = to_device(_interp_matrix(w, W), x.device, x.dtype)
+    mh = constant(_interp_matrix, h, H, device=x.device, dtype=x.dtype)
+    mw = constant(_interp_matrix, w, W, device=x.device, dtype=x.dtype)
     x = torch.einsum("Hh,bhwc->bHwc", mh, x)
     return torch.einsum("Ww,bhwc->bhWc", mw, x)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from streammos_tpu_torch.ops import pallas_scatter, pallas_scatter_vmem
-from streammos_tpu_torch.utils.profiling import to_device
+from streammos_tpu_torch.utils.profiling import constant
 
 IMPLS = ("auto", "xla", "pallas", "vmem")
 
@@ -62,7 +62,7 @@ def _cell_ids(inds: torch.Tensor, out_size: Sequence[int],
     cells = []
     valid = torch.ones(inds.shape[:-1], dtype=torch.bool, device=inds.device)
     for d in range(D):
-        scale = to_device(np.float32(scale_rate[d]), inds.device)
+        scale = constant(np.float32, scale_rate[d], device=inds.device)
         cell = (inds[..., d].to(torch.float32) * scale).to(torch.int32)
         valid &= (cell >= 0) & (cell < out_size[d])
         cells.append(cell.to(torch.int64))

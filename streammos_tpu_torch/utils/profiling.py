@@ -5,12 +5,18 @@ that holds the spans.
   layer of the eval step: the profiler's own `record_function` while a
   `torch.profiler` session records, so the span is a ``user_annotation``
   event on the clock of the trace's device events; otherwise one shared
-  no-op context, after a single check of the profiler's flag;
+  no-op context, after a single check of the profiler's flag. While a
+  CUDA graph of the eval step is captured (`utils/graphs.py`), the
+  capture's own context, which cuts a graph segment at each boundary;
 * :func:`count` / :func:`counters` — named counts, always on: the hand
-  kernels' launches (``kernel.*``), eval steps (``smt.steps``) and the
-  host-built tensors the eval step copies to the device (``h2d.copies``);
+  kernels' launches (``kernel.*``), eval steps (``smt.steps``), the
+  host-built tensors copied to the device (``h2d.copies``), and the eval
+  step's CUDA graphs (``graph.captures``, ``graph.replays``);
 * :func:`to_device` — `torch.as_tensor` of host data, counted as one
   ``h2d.copies`` (on a card, one pageable host-to-device copy);
+* :func:`constant` — a `to_device` tensor built once per value, dtype and
+  device and shared after, so a step's constants are copied once a
+  process and a CUDA graph can read them;
 * :func:`trace` — a `torch.profiler` context over the host and, on a
   card, the device, writing a Chrome trace, spans included, that
   TensorBoard's profiler plugin and Perfetto load.
@@ -18,7 +24,7 @@ that holds the spans.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.profiler import (ProfilerActivity, profile, record_function,
@@ -27,14 +33,30 @@ from torch.profiler import (ProfilerActivity, profile, record_function,
 _profiler_enabled = torch._C._autograd._profiler_enabled
 NO_SPAN = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = {}
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+_span_hook: Optional[Callable] = None
 
 
 def span(name: str):
     """A context that marks the block as span `name` in a recording
-    profiler's trace; `NO_SPAN` when no profiler records."""
+    profiler's trace; `NO_SPAN` when no profiler records; the hook's
+    context inside `spans_to`."""
+    if _span_hook is not None:
+        return _span_hook(name)
     if _profiler_enabled():
         return record_function(name)
     return NO_SPAN
+
+
+@contextlib.contextmanager
+def spans_to(hook: Callable):
+    """Inside the block, `span(name)` returns ``hook(name)``."""
+    global _span_hook
+    _span_hook = hook
+    try:
+        yield
+    finally:
+        _span_hook = None
 
 
 def count(name: str, n: int = 1) -> None:
@@ -52,6 +74,20 @@ def to_device(data, device, dtype=None) -> torch.Tensor:
     if not (isinstance(data, torch.Tensor) and data.device.type != "cpu"):
         count("h2d.copies")
     return torch.as_tensor(data, dtype=dtype, device=device)
+
+
+def constant(make: Callable, *args, device, dtype=None) -> torch.Tensor:
+    """``to_device(make(*args), device, dtype)``, built on the first call
+    for its (make, args, dtype, device) and the same tensor after: `args`
+    must fix the value (they compare by ``==``), and no caller may write
+    into the result. Built outside inference mode, so that a constant
+    first built in an eval step serves training's autograd too."""
+    key = (make, args, dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = to_device(make(*args), device, dtype)
+    return t
 
 
 @contextlib.contextmanager

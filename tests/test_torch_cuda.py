@@ -405,8 +405,9 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
 def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
     """`train.evaluate.stream_eval` over a synthetic two-sequence tree
     (StreamMOS_tiny, float32, random weights from a seed) on the card: one
-    fused-header launch a frame, no scatter-kernel launch, one `.label` a
-    frame; the metric within 1e-3 of the same run on the CPU, and at least
+    fused-header launch a frame and one for the eager warm-up before the
+    carried step's CUDA graphs are captured, no scatter-kernel launch, one
+    `.label` a frame; the metric within 1e-3 of the same run on the CPU, and at least
     99.5% of the label-file points equal to it (float32 sums in another
     order flip near-ties)."""
     import dataclasses
@@ -434,7 +435,7 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
             logger=logging.getLogger("test"), dataset=ds, save_root=str(root))
         if dev != "cpu":
             assert len(ds) == 8
-            assert _launched(before) == {"kernel.fused_header.f32": 8}
+            assert _launched(before) == {"kernel.fused_header.f32": 8 + 1}
         labels[str(dev)] = np.concatenate([
             np.fromfile(root / s / "predictions" / f"{i:06d}.label",
                         dtype=np.uint32)

@@ -1,10 +1,13 @@
 """`utils/profiling.py` on the CPU: `trace` writes a Chrome trace of the
 block into its directory, the eval step's spans among its events, each
 inside its parent; outside a profiler `span` is one shared no-op context;
-the counters count eval steps and the host-built tensors a step copies to
-the device, the same number on every step."""
+the counters count eval steps and the host-built tensors copied to the
+device: each of a step's constants once a process, on its first step,
+and none after; every cached constant is bit for bit what its site
+builds afresh."""
 import dataclasses
 import json
+import math
 import os
 
 import numpy as np
@@ -27,10 +30,10 @@ STEP_SPANS = [
     "smt.gather.point", "smt.heads", "smt.heads.scores"]
 
 
-def _model(fused_header: bool):
+def _model(fused_header: bool, dtype: str = "float32"):
     cfg = get_config("StreamMOS_tiny")
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, fused_header=fused_header))
+        cfg.model, fused_header=fused_header, compute_dtype=dtype))
     return serve.build_model(cfg, device="cpu", seed=3)
 
 
@@ -45,6 +48,46 @@ def _step_copies(model) -> int:
     5 scatter sites, two interpolation matrices per resize (2), and the
     attention's reference points and one normaliser per layer."""
     return 12 + 1 + 2 * 5 + 2 * 2 + 1 + model.cfg.n_attn_layers
+
+
+def _step_constants(model) -> int:
+    """The distinct ones among them, each a tensor of its own in the
+    cache: the featurization's values (x and y share their range and step,
+    and the distance's 1e-12 is the range view's), the TTA signs, the
+    scatter scales 1, 1/2 and 1/4, one interpolation matrix per distinct
+    (input, output) size of the two resizes, the reference points and one
+    normaliser for every layer."""
+    v = model.cfg.voxel
+    values = []
+    for d, rng in enumerate((v.range_x, v.range_y, v.range_z)):
+        values += [rng[0], 1.0 / ((rng[1] - rng[0]) / v.bev_shape[d])]
+    phi_hi = 180.0 * math.pi / 180.0
+    th_lo, th_hi = (t * math.pi / 180.0 for t in v.rv_theta)
+    values += [1e-12, phi_hi, 1.0 / ((phi_hi + phi_hi) / v.rv_shape[1]),
+               th_hi, 1.0 / ((th_hi - th_lo) / v.rv_shape[0]), 1e-12]
+    h0, w0 = v.bev_wl[0] // 2, v.bev_wl[1] // 2
+    resizes = {(h0 // s, h0) for s in (2, 4)} | {(w0 // s, w0) for s in (2, 4)}
+    return len({float(x).hex() for x in values}) + 1 + 3 + len(resizes) + 2
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+class _Fresh(dict):
+    """A constant cache that keeps nothing, so every site builds its
+    tensor afresh at every call; it records what was built, by key."""
+
+    def __init__(self):
+        super().__init__()
+        self.built = []
+
+    def get(self, key, default=None):
+        return default
+
+    def __setitem__(self, key, value):
+        self.built.append((key, value))
 
 
 def test_trace_writes_a_trace(tmp_path):
@@ -102,7 +145,8 @@ def test_eval_step_spans_nest_once_a_step(tmp_path, fused_header):
 
 
 @pytest.mark.parametrize("fused_header", [True, False])
-def test_h2d_copies_a_step(fused_header):
+def test_h2d_copies_a_step(monkeypatch, fused_header):
+    monkeypatch.setattr(profiling, "_CONSTANTS", {})
     model = _model(fused_header)
     frames = _frames(model, 3)
     memory = serve.initial_memory(model)
@@ -114,14 +158,55 @@ def test_h2d_copies_a_step(fused_header):
         after = profiling.counters()
         assert after["smt.steps"] - before.get("smt.steps", 0) == 1
         per_step.append(after["h2d.copies"] - before.get("h2d.copies", 0))
-    assert per_step == [_step_copies(model)] * 3
-    # the stream loop copies each frame besides
+    # each constant once, on the first step; the 30 tensors it copied on
+    # every step before hold fewer distinct values
+    assert per_step == [_step_constants(model), 0, 0]
+    assert _step_constants(model) < _step_copies(model)
+    # the stream loop copies each frame besides, and nothing else
     before = profiling.counters()
     list(serve.stream_eval(model, frames))
     after = profiling.counters()
-    assert after["h2d.copies"] - before["h2d.copies"] == 3 * (
-        _step_copies(model) + 1)
+    assert after["h2d.copies"] - before["h2d.copies"] == 3
     assert after["smt.steps"] - before["smt.steps"] == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cached_constants_are_the_sites_own(monkeypatch, dtype):
+    """Every cached constant equals, bit for bit and in dtype, the tensor
+    its site builds afresh at every call of a carried stream; one key
+    never stands for two values."""
+    model = _model(True, dtype)
+    frames = _frames(model, 2)
+    fresh = _Fresh()
+    monkeypatch.setattr(profiling, "_CONSTANTS", fresh)
+    list(serve.stream_eval(model, frames))
+    monkeypatch.setattr(profiling, "_CONSTANTS", {})
+    list(serve.stream_eval(model, frames))
+    cached = profiling._CONSTANTS
+    assert len(fresh.built) == 2 * _step_copies(model)
+    assert {key for key, _ in fresh.built} == set(cached)
+    assert len(cached) == _step_constants(model)
+    for key, built in fresh.built:
+        got = cached[key]
+        assert (got.dtype, got.shape, got.device) == (
+            built.dtype, built.shape, built.device)
+        assert torch.equal(_bits(got), _bits(built)), key
+    dtypes = {t.dtype for t in cached.values()}
+    assert dtypes == ({torch.float32} if dtype == "float32"
+                      else {torch.float32, torch.bfloat16})
+
+
+def test_a_constant_built_in_inference_mode_serves_autograd(monkeypatch):
+    monkeypatch.setattr(profiling, "_CONSTANTS", {})
+    with torch.inference_mode():
+        c = profiling.constant(list, (2.0, 4.0), device="cpu",
+                               dtype=torch.float32)
+    assert not c.is_inference()
+    assert profiling.constant(list, (2.0, 4.0), device="cpu",
+                              dtype=torch.float32) is c
+    x = torch.ones(2, requires_grad=True)
+    (x / c).sum().backward()
+    assert torch.equal(x.grad, 1.0 / c)
 
 
 def test_counters_and_to_device():
