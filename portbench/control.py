@@ -2,11 +2,14 @@
 process: the compared numbers of the measured package over many seeds
 (the lower readings), of the control (the plain reference in the
 program's place, computed in float8 e4m3: one precision below the
-configuration's bfloat16) and of each planted fault (`faults.py`): the
-upper readings. One JSON line a run.
+configuration's bfloat16) and of each fault the cell's mode plants
+(`modes/<loop>.py`'s ``FAULTS``): the upper readings. One JSON line a run.
+``--dtype`` runs the measured package in another compute dtype than the
+configuration's (a witness: float32 beside bfloat16).
 
     python3 portbench/control.py --workload <name> --seeds 1-12 \
-        --control-seeds 101-103 [--fault-seeds 201-203] --seconds 3
+        --control-seeds 101-103 [--fault-seeds 201-203] --seconds 3 \
+        [--dtype float32]
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ sys.path = [str(ROOT)] + [p for p in sys.path
 
 import torch  # noqa: E402
 
-from portbench import faults, manifest, sut  # noqa: E402
+from portbench import manifest, modes, sut  # noqa: E402
 from portbench.reference import streammos as ref  # noqa: E402
 from portbench.run import run_cell  # noqa: E402
 
@@ -56,8 +59,11 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", default="")
     ap.add_argument("--fault-seeds", default="")
     ap.add_argument("--seconds", type=float, default=3.0)
+    ap.add_argument("--dtype", default=None)
     args = ap.parse_args(argv)
     cell = manifest.resolve(manifest.load_manifest(), args.workload)
+    if args.dtype:
+        cell.config["model"]["compute_dtype"] = args.dtype
     if not torch.cuda.is_available():
         print("control: no CUDA card", file=sys.stderr)
         return 2
@@ -67,7 +73,7 @@ def main(argv=None) -> int:
     for seed in seed_list(args.control_seeds):
         reading(cell, seed, args.seconds, device, sut.Reference(ref.FP8()),
                 "control_fp8")
-    for name, fault in faults.FAULTS.items():
+    for name, fault in modes.load(cell.traffic["loop"]).FAULTS.items():
         for seed in seed_list(args.fault_seeds):
             with fault():
                 reading(cell, seed, args.seconds, device, sut.Port(),

@@ -1,5 +1,6 @@
-"""The general loops that a traffic file's ``loop`` names, and what they
-record.
+"""The eval loops that a traffic file's ``loop`` names (run by
+`modes/stream.py` and `modes/batched.py`), what they record, and the
+`Record` and the measured window that every mode shares.
 
 * ``stream``: one stream, closed loop, through `stream_eval`. A frame's
   latency runs on the host clock from the moment its points are handed
@@ -236,5 +237,3 @@ def batched(sut, model, cell, seed, seconds, trace, device, recorder) -> Record:
     rec.check["bank"] = bank
     return rec
 
-
-LOOPS = {"stream": stream, "batched": batched}

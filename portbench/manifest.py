@@ -6,12 +6,16 @@ mix. Everything that belongs to one of them sits in a file of its own:
   configs/<config>.json     the configuration as it is run (its `file` in
                             the manifest), naming its plain reference
   traffic/<traffic>.json    the traffic mix: parameters that the general
-                            loops of `loops.py` read
+                            loop its ``loop`` names reads
+  modes/<loop>.py           that loop's mode: how the system builds what it
+                            runs, the loop, what it records, the compared
+                            numbers (`modes/__init__.py`)
   limits/<workload>.json    the limits of the output comparison
   metrics/<metric>.py       one reader a metric: ``read(rec) -> float or
                             None`` (None: nothing to read in this run)
 
-so a later cell, traffic mix or metric is added as new files alone.
+so a later cell, traffic mix, kind of cell or metric is added as new files
+alone.
 """
 from __future__ import annotations
 
@@ -103,6 +107,8 @@ def problems(manifest: Dict) -> List[str]:
             out.append(f"bad 'better' of {m['name']}")
         if m["source"] not in SOURCES:
             out.append(f"bad source of {m['name']}")
+        if "workloads" in m and not m["workloads"]:
+            out.append(f"{m['name']} lists no cell under 'workloads'")
         for w in m.get("workloads", []):
             if w not in cells:
                 out.append(f"{m['name']} lists unknown cell {w}")

@@ -60,13 +60,19 @@ class Precision:
 class FP8(Precision):
     """The control: each tensor `gemm` or `act` sees rounded to float8 e4m3
     after scaling its largest magnitude to e4m3's largest finite value
-    (448)."""
+    (448); in training the gradient passes each rounding unchanged."""
 
     name = "float8_e4m3"
 
     def gemm(self, x: torch.Tensor) -> torch.Tensor:
-        scale = 448.0 / x.abs().amax().float().clamp(min=1e-30)
-        return (x * scale).to(torch.float8_e4m3fn).to(x.dtype) / scale
+        v = x.detach()
+        scale = 448.0 / v.abs().amax().float().clamp(min=1e-30)
+        q = (v * scale).to(torch.float8_e4m3fn).to(x.dtype) / scale
+        if not x.requires_grad:
+            return q
+        # the gradient passes the rounding straight through; q - v is
+        # exact (Sterbenz), so the value is q's
+        return x + (q - v)
 
     act = gemm
 

@@ -30,17 +30,16 @@ sys.path = [str(ROOT)] + [p for p in sys.path
 
 import torch  # noqa: E402
 
-from portbench import check, guard, loops, manifest, sut, tracing  # noqa: E402
-from portbench import weights as wts  # noqa: E402
-from portbench.reference import streammos as ref  # noqa: E402
+from portbench import check, guard, manifest, modes, sut, tracing  # noqa: E402
 
 
 class Run:
     """What the metric readers read: the cell, the window's record, the
-    set-up time."""
+    set-up time; and the seconds the comparison took."""
 
-    def __init__(self, cell, rec, setup_s):
+    def __init__(self, cell, rec, setup_s, check_s=0.0):
         self.cell, self.rec, self.setup_s = cell, rec, setup_s
+        self.check_s = check_s
 
 
 def seeds(seed: int):
@@ -49,36 +48,18 @@ def seeds(seed: int):
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device,
-             system, t_start: float = T_START):
-    """Set-up, window, readers, comparison. Returns (run, numbers,
-    steps that failed)."""
+             system, t_start: float = T_START, here: Path = manifest.HERE):
+    """Set-up, window, readers, comparison, in the mode of the cell's loop
+    (`modes/<loop>.py`). Returns (run, numbers, steps that failed)."""
     w_seed, t_seed = seeds(seed)
-    meta = ref.StreamMOS(cell.config["model"], cell.config["with_refine"]
-                         ).to("meta")
-    weights = wts.draw_weights(meta, w_seed, device)
-    t = cell.traffic
-    model = system.eval_model(cell.config, weights, device)
-    recorder = loops.Recorder(t["check_steps"], t["chain_steps"], t_seed)
-    undo = system.instrument(recorder.wrap)
-    unhook = system.hook_logits(model, recorder.on_logits)
-    try:
-        rec = loops.LOOPS[t["loop"]](system, model, cell, t_seed, seconds,
-                                     trace, device, recorder)
-    finally:
-        undo()
-        unhook()
-    rec.host_spans_s = recorder.spans
-    del model
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    chain, sample = recorder.chain, recorder.sample()
-    numbers = check.eval_numbers(cell, rec, chain, sample, weights, device)
-    if (len(chain) != t["chain_steps"]
-            or len(sample) != min(t["check_steps"], rec.steps)):
-        numbers["finite"] = 0.0
-    failed = 0 if check.verdict(numbers, cell.limits) else len(chain + sample)
-    run = Run(cell, rec, rec.window_t0 - t_start)
-    return run, numbers, failed
+    mode = modes.load(cell.traffic["loop"], here)
+    rec, compare = mode.run(system, cell, w_seed, t_seed, seconds, trace,
+                            device)
+    t_check = time.perf_counter()
+    numbers, compared = compare()
+    t_check = time.perf_counter() - t_check
+    failed = 0 if check.verdict(numbers, cell.limits) else compared
+    return Run(cell, rec, rec.window_t0 - t_start, t_check), numbers, failed
 
 
 def card_line() -> str:
@@ -139,9 +120,11 @@ def main(argv=None) -> int:
         print(f"portbench: the run loaded {loaded}", file=sys.stderr)
         return 4
     out = result(run, numbers, failed, bool(args.trace), cell.chips)
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     print(f"portbench: {args.workload} seed {args.seed} on {card_line()}; "
+          f"peak with the comparison {peak:.2f} GiB; "
           f"{numbers.get('steps_checked', cell.traffic.get('check_steps'))} "
-          f"steps checked; other readings "
+          f"steps checked in {run.check_s:.1f} s; other readings "
           + json.dumps({k: v for k, v in numbers.items()
                         if k not in cell.limits}), file=sys.stderr)
     for k, v in out["checks"].items():

@@ -139,8 +139,9 @@ def test_h2d_reader_reads_the_program_counters(monkeypatch):
 def test_one_production_step_by_layer(tmp_path):
     """One `eval_step` of the `seg_eval_1s` configuration on the card,
     traced: no device time left to the root span, at most 1% of the device
-    intervals without their launch, and as many `h2d.copies` as pageable
-    copies launched inside the step."""
+    intervals without their launch, and as many `h2d.copies` as host-to-
+    device copies launched inside the step, 0 included (a step replayed
+    from its CUDA graphs copies nothing from the host)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -182,7 +183,6 @@ def test_one_production_step_by_layer(tmp_path):
     assert sum(lay.device_us.values()) == pytest.approx(1e6 * s.busy_s)
     assert sum(lay.idle_us.values()) == pytest.approx(
         1e6 * (s.window_s - s.busy_s))
-    copies = after["h2d.copies"] - before.get("h2d.copies", 0)
-    assert copies > 0
+    copies = after.get("h2d.copies", 0) - before.get("h2d.copies", 0)
     assert layers.launched_inside(lay, layers.ROOT_SPAN,
                                   "Memcpy HtoD") == copies
