@@ -342,6 +342,8 @@ def streaming_loss(model: StreamMOSNet, windows: Dict[str, torch.Tensor],
     `remat` (`torch.utils.checkpoint`) draws the same masks, and its BN
     running statistics move only on the first run. The model's BN running
     statistics move once a window. Returns the mean loss over the windows.
+    Each window runs in span ``smt.train.window``, its loss in
+    ``smt.train.loss``.
     """
     key = "xyzi" if "xyzi" in windows else "points"
     S, B = windows[key].shape[:2]
@@ -360,32 +362,35 @@ def streaming_loss(model: StreamMOSNet, windows: Dict[str, torch.Tensor],
         return stage_forward(model, batch, memory, use_memory, train=True,
                              generator=gen)
 
+    def window_loss(i, batch, out):
+        if stage2:
+            return refine_loss(cfg, out, windows["bf_targets"][i], criterion)
+        hw = (cfg.voxel.bev_wl[0] // 2, cfg.voxel.bev_wl[1] // 2)
+        bev_tgt = bev_label_from_points(windows["targets"][i],
+                                        batch["bev_coord"][:, 0, :, :2],
+                                        hw, (0.5, 0.5))
+        return single_frame_loss(cfg, out, windows["targets"][i], bev_tgt,
+                                 criterion)
+
     total = 0.0
     for i in range(S):
-        if "xyzi" in windows:
-            batch = featurize(windows["xyzi"][i], cfg)
-        else:
-            batch = {k: windows[k][i] for k in ("points", "bev_coord",
-                                                "rv_coord")}
-        args = (batch["points"], batch["bev_coord"], batch["rv_coord"],
-                memory, i > 0, seeds[i])
-        if remat:
-            out = torch.utils.checkpoint.checkpoint(
-                one_window, *args, use_reentrant=False,
-                preserve_rng_state=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    frozen_bn_stats(model)))
-        else:
-            out = one_window(*args)
-        memory = out["memory"]
-        if stage2:
-            total = total + refine_loss(cfg, out, windows["bf_targets"][i],
-                                        criterion)
-        else:
-            hw = (cfg.voxel.bev_wl[0] // 2, cfg.voxel.bev_wl[1] // 2)
-            bev_tgt = bev_label_from_points(windows["targets"][i],
-                                            batch["bev_coord"][:, 0, :, :2],
-                                            hw, (0.5, 0.5))
-            total = total + single_frame_loss(cfg, out, windows["targets"][i],
-                                              bev_tgt, criterion)
+        with span("smt.train.window"):
+            if "xyzi" in windows:
+                batch = featurize(windows["xyzi"][i], cfg)
+            else:
+                batch = {k: windows[k][i] for k in ("points", "bev_coord",
+                                                    "rv_coord")}
+            args = (batch["points"], batch["bev_coord"], batch["rv_coord"],
+                    memory, i > 0, seeds[i])
+            if remat:
+                out = torch.utils.checkpoint.checkpoint(
+                    one_window, *args, use_reentrant=False,
+                    preserve_rng_state=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        frozen_bn_stats(model)))
+            else:
+                out = one_window(*args)
+            memory = out["memory"]
+            with span("smt.train.loss"):
+                total = total + window_loss(i, batch, out)
     return total / S

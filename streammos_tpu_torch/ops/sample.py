@@ -42,10 +42,13 @@ def bilinear_at_pixels(grid: torch.Tensor, py: torch.Tensor,
 def grid_to_point(grid: torch.Tensor, coords: torch.Tensor,
                   scale_rate: Sequence[float]) -> torch.Tensor:
     """grid (B, H, W, C); coords (B, N, 2) as (row, col) in unscaled grid
-    units. Returns (B, N, C). As in the JAX op, the coords are rounded to
-    the grid's dtype and then scaled in float32."""
-    py = coords[..., 0].to(grid.dtype).float() * float(np.float32(scale_rate[0]))
-    px = coords[..., 1].to(grid.dtype).float() * float(np.float32(scale_rate[1]))
+    units. Returns (B, N, C). The positions are the coords scaled in
+    float32, as `grid_to_point_tta` forms them; only the tap weights take
+    the grid's dtype. A deliberate difference from the JAX op, which rounds
+    the coords to the grid's dtype before scaling: in bfloat16 that moves a
+    position in [256, 512) by up to 2 cells."""
+    py = coords[..., 0].float() * float(np.float32(scale_rate[0]))
+    px = coords[..., 1].float() * float(np.float32(scale_rate[1]))
     return bilinear_at_pixels(grid, py, px)
 
 

@@ -25,6 +25,7 @@ from streammos_tpu_torch.serve import resolve_device
 from streammos_tpu_torch.train.checkpoint import graft_params
 from streammos_tpu_torch.train.optim import (Optimizer, apply_updates,
                                              global_norm)
+from streammos_tpu_torch.utils.profiling import count, span
 from streammos_tpu_torch.weights import init_random_
 
 
@@ -49,7 +50,12 @@ def make_train_step(model: StreamMOSNet, cfg: Config, tx: Optimizer,
     the global norm of the gradient over every parameter (a parameter the
     loss does not reach counts as a zero gradient). `windows` is laid out
     as `streaming_loss` documents; `generator` (a CPU `torch.Generator`)
-    seeds the dropout of the step's windows.
+    seeds the dropout of the step's windows. A step is span
+    ``smt.train.step`` (with ``smt.train.backward`` and
+    ``smt.train.optimizer`` inside) and counts one ``train.steps``; on a
+    card it also counts in ``train.saved_bytes`` the bytes that the
+    windows' forward and loss allocated and still hold when the backward
+    starts (what autograd keeps for the backward through the S windows).
 
     Data-parallel (a process group active): `windows` holds this rank's
     rows of the global batch, and the step is JAX's step on the global
@@ -69,21 +75,33 @@ def make_train_step(model: StreamMOSNet, cfg: Config, tx: Optimizer,
                 generator: Optional[torch.Generator] = None):
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
-        for p in params.values():
-            p.grad = None
-        loss = streaming_loss(model, windows, cfg.model, generator,
-                              stage2=stage2, remat=remat)
-        if parallel.active():
-            (loss / parallel.process_count()).backward()
-        else:
-            loss.backward()
-        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                 for n, p in params.items()}
-        parallel.all_reduce_grads(grads)
-        updates, state.opt_state = tx.update(grads, state.opt_state, params)
-        apply_updates(params, updates)
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        with span("smt.train.step"):
+            for p in params.values():
+                p.grad = None
+            device = next(iter(params.values())).device
+            card = device.type == "cuda"
+            held = torch.cuda.memory_allocated(device) if card else 0
+            loss = streaming_loss(model, windows, cfg.model, generator,
+                                  stage2=stage2, remat=remat)
+            if card:
+                count("train.saved_bytes",
+                      torch.cuda.memory_allocated(device) - held)
+            with span("smt.train.backward"):
+                if parallel.active():
+                    (loss / parallel.process_count()).backward()
+                else:
+                    loss.backward()
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in params.items()}
+            parallel.all_reduce_grads(grads)
+            with span("smt.train.optimizer"):
+                updates, state.opt_state = tx.update(grads, state.opt_state,
+                                                     params)
+                apply_updates(params, updates)
+            state.step += 1
+            count("train.steps")
+            return state, {"loss": loss.detach(),
+                           "grad_norm": global_norm(grads)}
 
     return step_fn
 

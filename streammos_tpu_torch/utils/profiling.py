@@ -1,17 +1,21 @@
-"""Profiling: the eval step's spans, the process's counters, and the trace
-that holds the spans.
+"""Profiling: the eval and train steps' spans, the process's counters, and
+the trace that holds the spans.
 
 * :func:`span` — a named span (``smt.<bucket>[.<site>]``) at a call into a
-  layer of the eval step: the profiler's own `record_function` while a
+  layer of the eval step, or a phase of the train step (``smt.train.step``
+  around ``smt.train.window``, ``smt.train.loss``, ``smt.train.backward``
+  and ``smt.train.optimizer``): the profiler's own `record_function` while a
   `torch.profiler` session records, so the span is a ``user_annotation``
   event on the clock of the trace's device events; otherwise one shared
   no-op context, after a single check of the profiler's flag. While a
   CUDA graph of the eval step is captured (`utils/graphs.py`), the
   capture's own context, which cuts a graph segment at each boundary;
 * :func:`count` / :func:`counters` — named counts, always on: the hand
-  kernels' launches (``kernel.*``), eval steps (``smt.steps``), the
-  host-built tensors copied to the device (``h2d.copies``), and the eval
-  step's CUDA graphs (``graph.captures``, ``graph.replays``);
+  kernels' launches (``kernel.*``), eval steps (``smt.steps``), train
+  steps (``train.steps``) and the bytes each holds for its backward on a
+  card (``train.saved_bytes``), the host-built tensors copied to the device
+  (``h2d.copies``), and the eval step's CUDA graphs (``graph.captures``,
+  ``graph.replays``);
 * :func:`to_device` — `torch.as_tensor` of host data, counted as one
   ``h2d.copies`` (on a card, one pageable host-to-device copy);
 * :func:`constant` — a `to_device` tensor built once per value, dtype and
