@@ -35,12 +35,22 @@ result line):
      beside the bound; then full-size adversarial inputs (160k
      rows in one cell, signed; runs of exactly 64 rows, signed), each kernel
      bit-exact against its plain version there and timed;
+  4b. the folded TTA gather kernel (`grid_to_point_tta`) at the five
+     gather sites of one main-path frame of StreamMOS_seg (the grids and
+     coordinates the model hands over in an eager step, bfloat16, strides
+     as they come): against its plain version run in float32 on the same
+     grid (within one rounding to bfloat16), and on the float32 grid
+     (within 1e-6); kernel and plain version timed eagerly (`ms`,
+     `plain_ms`) and replayed from a CUDA graph (`device_ms`,
+     `plain_device_ms`), beside the bytes bound (grid, coordinates and
+     output once each);
   5. the main path: `serve.stream_eval`, the streaming TTA eval of
      StreamMOS_seg (bfloat16, random weights from a seed) over one sequence
      of range-skewed frames of 160k points x T=3, memory fresh on the first
      frame and carried after; launch counts are zeroed just before and read
-     just after (the scatters take `impl="auto"` there: the scatter kernels
-     launch no time);
+     just after (the header and the gather kernel at five sites a frame;
+     the scatters take `impl="auto"` there: the scatter kernels launch no
+     time);
   5b. the main path in float32: StreamMOS_seg with compute_dtype "float32"
      (`dataclasses.replace`), the same frames, counts zeroed just before and
      read just after (the float32 header kernel once a frame), ms/frame
@@ -158,6 +168,7 @@ F32_TOL = 1e-4  # the float32 header kernel against its plain version
 # float32 main path scores, fused header vs frame-split: about 4x the
 # 2.444e-06 they differ by on an H100 80GB HBM3
 F32_PATH_TOL = 1e-5
+GATHER_SITES = 5  # folded TTA gathers a StreamMOS_seg frame
 
 
 def check(cond: bool, what: str) -> None:
@@ -752,6 +763,93 @@ def scatter_phase(dev, cfg):
     return entries
 
 
+def gather_phase(dev, cfg):
+    """The folded TTA gather kernel at the five gather sites of one
+    main-path frame, on the grids and coordinates the model hands over in
+    an eager step (bfloat16). Returns its entry of the `kernels` line, the
+    numbers summed over the five sites of a frame."""
+    from streammos_tpu_torch import build, serve
+    from streammos_tpu_torch.models import stream_mos
+    from streammos_tpu_torch.nn import encoder
+    from streammos_tpu_torch.ops import tta_fold
+
+    kernel, plain = (tta_fold.grid_to_point_tta,
+                     tta_fold.grid_to_point_tta_reference)
+    model = serve.build_model(cfg, with_refine=True, device=dev, seed=SEED)
+    xyzi = main_frames(cfg, dev)[0]["xyzi"][None]
+    sites = []
+
+    def spy(*args):
+        sites.append(args)
+        return kernel(*args)
+
+    encoder.grid_to_point_tta = stream_mos.grid_to_point_tta = spy
+    try:
+        with torch.inference_mode():
+            serve.eval_step(model, xyzi, serve.initial_memory(model), False)
+    finally:
+        encoder.grid_to_point_tta = stream_mos.grid_to_point_tta = kernel
+    check(len(sites) == GATHER_SITES, f"{len(sites)} gather sites")
+    names = ("bev0", "rv0", "bev1", "rv1", "point")
+    rows = []
+    with torch.inference_mode():
+        for name, (g, coords, scale, kind) in zip(names, sites):
+            got = kernel(g, coords, scale, kind)
+            want = plain(g.float(), coords, scale, kind)
+            got32 = kernel(g.float(), coords, scale, kind)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            excess = float(((got.float() - want).abs()
+                            - 2 ** -8 * want.abs()).max())
+            err32 = max_abs_err(got32, want)
+            check(excess <= 0 and err32 <= 1e-6 * (1 + float(want.abs().max())),
+                  f"gather {name}: bf16 err {err}, float32 err {err32}")
+            V, B, H, W, C = g.shape
+            nbytes = (g.numel() * g.element_size() + coords.shape[1] * B * 8
+                      + got.numel() * got.element_size())
+            call = lambda: kernel(g, coords, scale, kind)
+            call_plain = lambda: plain(g, coords, scale, kind)
+            r = dict(site=name, kind=kind, grid=list(g.shape),
+                     strides=list(g.stride()), points=coords.shape[1],
+                     max_abs_err=err, max_abs_err_float32=err32,
+                     ms=time_ms(call, 20), device_ms=graph_ms(call, 20),
+                     plain_ms=time_ms(call_plain, 5, warmup=1),
+                     plain_device_ms=graph_ms(call_plain, 5),
+                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, mb=nbytes / 1e6)
+            rows.append(r)
+            print(f"grid_to_point_tta at {name} ({kind}, grid {tuple(g.shape)} "
+                  f"strides {tuple(g.stride())}, {coords.shape[1]} points): "
+                  f"max_abs_err {err:.3e} vs the float32 plain version "
+                  f"(bf16 output rounding), float32 {err32:.3e}; kernel "
+                  f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+                  f"{r['plain_ms']:.4f} ms (device {r['plain_device_ms']:.4f}),"
+                  f" bound {r['bound_ms']:.4f} ms ({r['mb']:.1f} MB), bound / "
+                  f"device time {r['bound_ms'] / r['device_ms']:.3f}",
+                  flush=True)
+    ptxas = build.ptxas_lines("grid_gather_tta")
+    check(any("registers" in line for line in ptxas),
+          "no ptxas register lines for grid_gather_tta")
+    total = {k: sum(r[k] for r in rows) for k in
+             ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+              "mb")}
+    return {
+        "name": "grid_to_point_tta", "route": "cuda",
+        "source": "streammos_tpu_torch/csrc/grid_gather_tta.cu",
+        "replaces": None,
+        "replaces_function": ("no TPU kernel: JAX's grid_to_point_tta "
+                              "(streammos_tpu/ops/tta_fold.py) is plain XLA"),
+        "ok": True, "max_abs_err": max(r["max_abs_err"] for r in rows),
+        **total, "bound_by": "bytes",
+        "bound_share": total["bound_ms"] / total["device_ms"],
+        "totals_note": "ms, device_ms, plain_*, bound_ms and mb: sums over "
+                       "the five gather sites of a frame",
+        "library_ms": None,
+        "library_note": ("no single PyTorch call computes the folded "
+                         "gather (four oriented grids, four bilinear taps "
+                         "each, seam and guard rules)"),
+        "ptxas": ptxas, "sites": rows, "dtype": "bfloat16"}
+
+
 _COUNTS_AT_ZERO: dict = {}
 
 
@@ -774,11 +872,13 @@ def read_counts() -> dict:
     now = profiling.counters()
     since = {k: now.get(k, 0) - _COUNTS_AT_ZERO.get(k, 0)
              for k in ("kernel.fused_header.bf16", "kernel.fused_header.f32",
-                       "kernel.sorted_scatter", "kernel.scatter_grid")}
+                       "kernel.sorted_scatter", "kernel.scatter_grid",
+                       "kernel.grid_gather_tta")}
     return {"fused_header_tta": (since["kernel.fused_header.bf16"]
                                  + since["kernel.fused_header.f32"]),
             "sorted_scatter_max": since["kernel.sorted_scatter"],
             "scatter_max_vmem": since["kernel.scatter_grid"],
+            "grid_to_point_tta": since["kernel.grid_gather_tta"],
             "fused_header_tta_float32": since["kernel.fused_header.f32"]}
 
 
@@ -846,6 +946,8 @@ def main_path_phase(dev, cfg):
     check(launches["fused_header_tta"] == FRAMES
           and launches["fused_header_tta_float32"] == 0,
           f"fused header launches {launches} != {FRAMES} bf16")
+    check(launches["grid_to_point_tta"] == GATHER_SITES * FRAMES,
+          f"gather launches {launches} != {GATHER_SITES} a frame")
     print(f"main path StreamMOS_seg bf16, {POINTS} points x T={T}, TTA x4 "
           f"folded, {FRAMES} frames through serve.stream_eval: "
           f"{np.mean(ms):.3f} ms/frame mean, {np.median(ms):.3f} median, "
@@ -1691,6 +1793,9 @@ def val_cli_phase(seqs: str, work: str):
     check(launches["sorted_scatter_max"] == 0
           and launches["scatter_max_vmem"] == 0,
           f"CLI path scatter launches {launches}")
+    check(launches["grid_to_point_tta"]
+          == GATHER_SITES * (frames + captures),
+          f"CLI path gather launches {launches}")
     ms = [a.elapsed_time(b) for a, b in events]
     check(len(ms) == frames and len(ends) == 1, "one step a frame")
     # after the first frame: the stream's wall from the second frame's
@@ -2034,6 +2139,7 @@ def main() -> int:
     cfg = get_config("StreamMOS_seg")
     kernel, kernel_f32 = header_phase(dev, name, cfg)
     scatters = scatter_phase(dev, cfg)
+    gather = gather_phase(dev, cfg)
     main = main_path_phase(dev, cfg)
     main32 = main_path_f32_phase(dev, cfg, main["ms_per_frame"])
     small_agreement_phase(dev)
@@ -2056,16 +2162,16 @@ def main() -> int:
     kernel_f32["launches"] = main32["launches"]["fused_header_tta_float32"]
     kernel_f32["launches_per_frame"] = kernel_f32["launches"] / FRAMES
     kernel_f32["launches_in"] = "the float32 main path (main_path_float32)"
-    for k in scatters:
+    for k in (*scatters, gather):
         k["launches_per_frame"] = main["launches"][k["name"]] / FRAMES
-    for k in (kernel, kernel_f32, *scatters):
+    for k in (kernel, kernel_f32, *scatters, gather):
         k["launches_training_path"] = sum(
             t["launches"][k["name"]] for t in train.values())
         k["launches_cli_path"] = host["val_cli"]["launches"][k["name"]]
         k["launches_voting_path"] = voting["launches"][k["name"]]
         k["launches_dp_path"] = (dp1["launches"][k["name"]]
                                  + dp2["launches"][k["name"]])
-    print(json.dumps({"kernels": [kernel, kernel_f32, *scatters],
+    print(json.dumps({"kernels": [kernel, kernel_f32, *scatters, gather],
                       "main_path": {"config": "StreamMOS_seg",
                                     "points": POINTS, "frames": FRAMES,
                                     "ms_per_frame": main["ms_per_frame"],

@@ -28,6 +28,7 @@ SOURCES: Dict[str, str] = {
     "fused_header": "csrc/fused_header.cu",
     "sorted_scatter": "csrc/sorted_scatter.cu",
     "scatter_grid": "csrc/scatter_grid.cu",
+    "grid_gather_tta": "csrc/grid_gather_tta.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,16 +10,26 @@ features side by side on channels, then orients each variant's grid; the
 gather aligns each variant's grid back to canonical coordinates and reads
 all variants' bilinear taps in one row per tap.
 
+`grid_to_point_tta` launches the hand-written CUDA kernel
+`csrc/grid_gather_tta.cu` for CUDA tensors (it replaces no TPU kernel: JAX's
+op is plain XLA) and runs the plain version `grid_to_point_tta_reference`
+for CPU tensors. There is no other path: a CUDA tensor the kernel cannot
+take raises.
+
 Variant order: (+x,+y), (+x,-y), (-x,+y), (-x,-y).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from streammos_tpu_torch.build import load_library
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
+from streammos_tpu_torch.utils import profiling
 
 V_TTA = 4
 
@@ -127,13 +137,12 @@ def _axis_weights(transform: str, size: int, p: torch.Tensor, dtype):
     raise ValueError(transform)
 
 
-def grid_to_point_tta(grids: torch.Tensor, coords0: torch.Tensor,
-                      scale_rate: Sequence[float], kind: str) -> torch.Tensor:
-    """Bilinear-sample all variants with one row gather per tap.
-
-    grids (V, B, H, W, C) per-variant grids in their own orientations;
-    coords0 (B, N, 2) variant-0 coords in unscaled grid units. Returns
-    (B, N, V*C), the per-variant samples folded as v-major channel blocks."""
+def grid_to_point_tta_reference(grids: torch.Tensor, coords0: torch.Tensor,
+                                scale_rate: Sequence[float],
+                                kind: str) -> torch.Tensor:
+    """Plain version: bilinear-sample all variants with one row gather per
+    tap from a stack of extended tables, one a variant, aligned to canonical
+    coordinates."""
     V, B, H, W, C = grids.shape
     if V != V_TTA:
         raise ValueError(f"expected {V_TTA} variants, got {V}")
@@ -171,3 +180,77 @@ def grid_to_point_tta(grids: torch.Tensor, coords0: torch.Tensor,
             term = t * wk[..., None]
             out = term if out is None else out + term
     return (out * guard[..., None, None]).reshape(B, -1, V * C)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("grid_gather_tta")
+    fn = lib.streammos_grid_gather_tta
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    return lib
+
+
+def grid_to_point_tta(grids: torch.Tensor, coords0: torch.Tensor,
+                      scale_rate: Sequence[float], kind: str) -> torch.Tensor:
+    """Bilinear-sample all variants at the points.
+
+    grids (V, B, H, W, C) per-variant grids in their own orientations;
+    coords0 (B, N, 2) variant-0 coords in unscaled grid units. Returns
+    (B, N, V*C), the per-variant samples folded as v-major channel blocks.
+    CPU tensors run `grid_to_point_tta_reference`. CUDA tensors launch the
+    kernel: float32 or bfloat16 grids whose C channels fill whole 32-byte
+    runs and whose channels (16-byte aligned) or columns are the innermost
+    axis, and float32 coordinates; anything else raises."""
+    if grids.dim() != 5 or grids.shape[0] != V_TTA:
+        raise ValueError(f"need grids ({V_TTA}, B, H, W, C), got "
+                         f"{tuple(grids.shape)}")
+    V, B, H, W, C = grids.shape
+    if (coords0.dim() != 3 or coords0.shape[0] != B
+            or coords0.shape[2] < 2):
+        raise ValueError(f"need coords0 ({B}, N, 2), got "
+                         f"{tuple(coords0.shape)}")
+    _transforms(kind)  # raises on an unknown kind
+    if grids.device.type == "cpu" and coords0.device.type == "cpu":
+        return grid_to_point_tta_reference(grids, coords0, scale_rate, kind)
+    if not grids.is_cuda or coords0.device != grids.device:
+        raise ValueError(f"no TTA gather for devices {grids.device}, "
+                         f"{coords0.device}")
+    if grids.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"TTA gather kernel takes float32 or bfloat16 grids, "
+                        f"got {grids.dtype}")
+    if coords0.dtype != torch.float32:
+        raise TypeError(f"TTA gather kernel takes float32 coordinates, got "
+                        f"{coords0.dtype}")
+    item = grids.element_size()
+    strides = grids.stride()
+    if strides[4] == 1:
+        aligned = (grids.data_ptr() % 16 == 0
+                   and all(s * item % 16 == 0 for s in strides[:4]))
+    else:
+        aligned = strides[3] == 1
+    if C * item % 32 or not aligned:
+        raise ValueError(f"TTA gather kernel needs C * itemsize a multiple of "
+                         f"32 bytes and the channels (16-byte aligned) or the "
+                         f"columns innermost: C={C}, {grids.dtype}, strides "
+                         f"{strides}")
+    N = coords0.shape[1]
+    dev = grids.device
+    out = torch.empty((B, N, V * C), dtype=grids.dtype, device=dev)
+    scratch = (None if strides[4] == 1 else
+               torch.empty((V, B, H, W, C), dtype=grids.dtype, device=dev))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().streammos_grid_gather_tta(
+            grids.data_ptr(), coords0.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), B, N, H, W, C,
+            (ctypes.c_longlong * 5)(*strides),
+            (ctypes.c_longlong * 3)(*coords0.stride()),
+            float(np.float32(scale_rate[0])), float(np.float32(scale_rate[1])),
+            int(kind == "rv"), int(grids.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"TTA gather kernel launch failed: CUDA error {err}")
+    profiling.count("kernel.grid_gather_tta")
+    return out

@@ -12,6 +12,13 @@ in another order); bfloat16 (the tensor-core kernel) rtol = atol = 1e-2
 against the plain version run in float32 on the same bfloat16 inputs (the
 kernel rounds its output to bfloat16). The scatter kernels are bit-exact against their plain versions
 and `impl="auto"`, forward and backward: a max does not depend on order.
+The folded TTA gather kernel: float32 within 1e-6 of its plain version
+(the same float32 ops, each rounded once, in the same order); bfloat16
+within one rounding to bfloat16 (rtol 2**-8) of the plain version run in
+float32 on the same grid (the kernel sums in float32 and rounds once), and
+within 2**-5 of the sum of the kept taps' magnitudes of the plain bfloat16
+version, which rounds its weights (each off by up to 2**-8 absolute: f
+and 1 - f rounded), its products and its sums.
 """
 import importlib.util
 import os
@@ -23,6 +30,7 @@ import torch
 from streammos_tpu_torch.ops import fused_header as t_fh
 from streammos_tpu_torch.ops import pallas_scatter as t_sorted
 from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
+from streammos_tpu_torch.ops import tta_fold as t_tta
 from streammos_tpu_torch.ops import voxel_pool as t_vp
 from streammos_tpu_torch.utils import profiling
 
@@ -38,6 +46,7 @@ def _by_path(name):
 
 
 cases = _by_path("scatter_cases")
+gather_cases = _by_path("gather_cases")
 
 
 def _launched(before):
@@ -435,7 +444,9 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
             logger=logging.getLogger("test"), dataset=ds, save_root=str(root))
         if dev != "cpu":
             assert len(ds) == 8
-            assert _launched(before) == {"kernel.fused_header.f32": 8 + 1}
+            # a frame each, and the warm-up before the one capture
+            assert _launched(before) == {"kernel.fused_header.f32": 8 + 1,
+                                         "kernel.grid_gather_tta": 5 * (8 + 1)}
         labels[str(dev)] = np.concatenate([
             np.fromfile(root / s / "predictions" / f"{i:06d}.label",
                         dtype=np.uint32)
@@ -445,3 +456,128 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
     assert all(abs(a[k] - b[k]) <= 1e-3 for k in a), (a, b)
     assert labels["cpu"].shape == labels[str(cuda)].shape == (8 * 3000,)
     assert (labels["cpu"] == labels[str(cuda)]).mean() >= 0.995
+
+
+# the five gather sites of a StreamMOS_seg frame: (name, kind, H, W, C, scale)
+GATHER_SITES = [("bev0", "bev", 256, 256, 32, (0.5, 0.5)),
+                ("rv0", "rv", 32, 1024, 32, (0.5, 0.5)),
+                ("bev1", "bev", 128, 128, 64, (0.25, 0.25)),
+                ("rv1", "rv", 16, 512, 64, (0.25, 0.25)),
+                ("point", "bev", 256, 256, 64, (0.5, 0.5))]
+
+
+def _gather_inputs(dev, dtype, Bt, H, W, C, N, scale, layout, seed=0):
+    """Variant grids (4, Bt, H, W, C) as the model hands them over: views of
+    (4 * Bt, C, H, W) conv outputs, channels-last ("nhwc") or not
+    ("nchw"); coordinates with the cases of `gather_cases` first, viewed
+    out of a wider array as the model's are."""
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(4 * Bt, C, H, W).astype(np.float32))
+    g = g.to(dev, dtype)
+    if layout == "nhwc":
+        g = g.contiguous(memory_format=torch.channels_last)
+    grids = g.permute(0, 2, 3, 1).reshape(4, Bt, H, W, C)
+    c = gather_cases.coords(rng, Bt, N, H, W, scale)
+    wide = np.concatenate([c, rng.randn(Bt, N, 1).astype(np.float32)], -1)
+    return grids, torch.from_numpy(wide).to(dev)[..., :2]
+
+
+def _check_gather(grids, coords, scale, kind):
+    before = profiling.counters()
+    got = t_tta.grid_to_point_tta(grids, coords, scale, kind)
+    assert _launched(before) == {"kernel.grid_gather_tta": 1}
+    want32 = t_tta.grid_to_point_tta_reference(grids.float(), coords, scale,
+                                               kind)
+    torch.cuda.synchronize()
+    assert got.shape == want32.shape and got.dtype == grids.dtype
+    if grids.dtype == torch.float32:
+        torch.testing.assert_close(got, want32, rtol=1e-6, atol=1e-6)
+        return got
+    torch.testing.assert_close(got.float(), want32, rtol=2 ** -8, atol=1e-30)
+    # the sum of the kept taps' magnitudes: weights 1/4 each at the cell
+    # centre of the same window keep the same taps
+    centre = [(torch.floor(coords[..., i] * scale[i]) + 0.5) / scale[i]
+              for i in range(2)]
+    taps = 4 * t_tta.grid_to_point_tta_reference(
+        grids.float().abs(), torch.stack(centre, -1), scale, kind)
+    plain = t_tta.grid_to_point_tta_reference(grids, coords, scale, kind)
+    assert bool(((got.float() - plain.float()).abs()
+                 <= 2 ** -5 * taps + 1e-30).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bt", [1, 4])
+@pytest.mark.parametrize("site", GATHER_SITES, ids=[s[0] for s in GATHER_SITES])
+def test_grid_gather_kernel_matches_plain(cuda, site, Bt, dtype):
+    _, kind, H, W, C, scale = site
+    for layout in ("nhwc", "nchw"):
+        grids, coords = _gather_inputs(cuda, dtype, Bt, H, W, C, 160_000,
+                                       scale, layout)
+        got = _check_gather(grids, coords, scale, kind)
+        far = coords.abs().amax(-1) >= gather_cases.FAR
+        assert int(far.sum()) == Bt * 12 and not got[far].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [0, 1, 37, 1003])
+def test_grid_gather_kernel_edge_sizes(cuda, dtype, N):
+    for kind in ("bev", "rv"):
+        for layout in ("nhwc", "nchw"):
+            grids, coords = _gather_inputs(cuda, dtype, 2, 6, 16, 16, N,
+                                           (0.5, 0.5), layout, seed=N)
+            got = _check_gather(grids, coords, (0.5, 0.5), kind)
+            assert got.shape == (2, N, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nhwc", "nchw"])
+def test_grid_gather_kernel_replays_in_a_cuda_graph(cuda, layout):
+    grids, coords = _gather_inputs(cuda, torch.bfloat16, 1, 32, 64, 32, 5000,
+                                   (0.5, 0.5), layout)
+    call = lambda: t_tta.grid_to_point_tta(grids, coords, (0.5, 0.5), "rv")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = profiling.counters()
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _launched(before) == {"kernel.grid_gather_tta": 1}
+    for shift in (0.0, 3.25):
+        coords.add_(shift)
+        grids.mul_(1.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+
+
+@pytest.mark.cuda
+def test_grid_gather_kernel_rejects_what_it_cannot_take(cuda):
+    grids, coords = _gather_inputs(cuda, torch.bfloat16, 1, 8, 16, 16, 50,
+                                   (0.5, 0.5), "nhwc")
+    gather = lambda g, c: t_tta.grid_to_point_tta(g, c, (0.5, 0.5), "bev")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gather(grids.half(), coords)
+    with pytest.raises(TypeError, match="coordinates"):
+        gather(grids, coords.double())
+    with pytest.raises(ValueError, match="devices"):
+        gather(grids, coords.cpu())
+    with pytest.raises(ValueError, match="32 bytes"):
+        gather(grids[..., :8], coords)   # 16 bytes of channels
+    wide, _ = _gather_inputs(cuda, torch.bfloat16, 1, 8, 16, 24, 50,
+                             (0.5, 0.5), "nhwc")
+    with pytest.raises(ValueError, match="innermost"):
+        gather(wide[..., 4:20], coords)  # starts 8 bytes into a slice
+    _check_gather(wide[..., 8:24], coords, (0.5, 0.5), "bev")
+    with pytest.raises(ValueError, match="innermost"):
+        gather(grids.permute(0, 1, 3, 4, 2).contiguous()
+               .permute(0, 1, 4, 2, 3), coords)  # rows innermost
+    with pytest.raises(ValueError, match="grids"):
+        gather(grids[:2], coords)
+    with pytest.raises(ValueError, match="coords0"):
+        gather(grids, coords[:, :, :1])

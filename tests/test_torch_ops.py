@@ -21,6 +21,7 @@ from streammos_tpu_torch.ops import resize as t_resize
 from streammos_tpu_torch.ops import sample as t_sample
 from streammos_tpu_torch.ops import tta_fold as t_tta
 from streammos_tpu_torch.ops import voxel_pool as t_vp
+from tests import gather_cases
 from tests.test_torch_common import use_few_threads
 
 use_few_threads()
@@ -178,3 +179,21 @@ def test_grid_to_point_tta(kind, hw):
                                    scale, kind)
     got = t_tta.grid_to_point_tta(_t(grids), _t(coords), scale, kind)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind,hw", [("bev", (10, 12)), ("rv", (6, 16))])
+def test_grid_to_point_tta_far_outside(kind, hw):
+    """Points far outside the grid (+-1e4: the clamp moves the window and the
+    guard must zero the row), on one axis or both, beside the seams, edges
+    and integers of `tests/gather_cases.py`."""
+    H, W = hw
+    rng = np.random.RandomState(10)
+    grids = rng.randn(4, 2, H, W, 3).astype(np.float32)
+    scale = (0.5, 0.5)
+    coords = gather_cases.coords(rng, 2, 300, H, W, scale)
+    far = np.abs(coords).max(-1) >= gather_cases.FAR
+    want = j_tta.grid_to_point_tta(jnp.asarray(grids), jnp.asarray(coords),
+                                   scale, kind)
+    got = t_tta.grid_to_point_tta(_t(grids), _t(coords), scale, kind)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert far.sum() == 2 * 12 and not got.numpy()[far].any()
