@@ -1,7 +1,7 @@
 """Synthetic LiDAR frames for driving the eval path at production size.
 
 A copy of `bench.py:skewed_scan_bank` (numpy only): the same protocol
-feeds the port's smoke run and its trace.
+feeds the port's card tests, its kernel timing and its trace.
 """
 from __future__ import annotations
 

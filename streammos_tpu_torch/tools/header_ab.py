@@ -10,10 +10,10 @@ wrapper and its own kernels, built from its sources into its `build/`),
 in the order other, this, this, other. Only the wrapper's public contract
 is used, so any two commits of the port compare. The inputs are drawn
 from one seed on the CPU at StreamMOS_seg's production shape (G (3, 4,
-258, 256, 256), C = 64, Cout = 32), made as `chip_smoke.py`'s header
-phase makes them. A run checks its float32 output against its own plain
-version (rtol = atol = 1e-4, TF32 off) and times both dtypes eagerly
-with CUDA events. Prints the card's name and power limit, each run's
+258, 256, 256), C = 64, Cout = 32), made and timed by this checkout's
+`tools/kernel_times.py`. A run checks its float32 output against its own
+plain version (rtol = atol = 1e-4, TF32 off) and times both dtypes
+eagerly with CUDA events. Prints the card's name and power limit, each run's
 times, whether the bf16 outputs of the two checkouts are bit-equal, the
 float32 outputs' largest difference, and, as its last line, one JSON
 object of all of it. Exits non-zero if a run fails or misses the float32
@@ -35,8 +35,8 @@ THIS_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def run(root: str, out: str) -> None:
     """One run: `root`'s header at the production shape, both dtypes, on
-    the inputs and with the timing of this checkout's `chip_smoke.py`
-    header phase; writes the outputs and times to `out`."""
+    the inputs and with the timing of this checkout's `kernel_times.py`;
+    writes the outputs and times to `out`."""
     sys.path[0] = root  # the checkout's package, not this file's folder
     import importlib.util
 
@@ -45,30 +45,28 @@ def run(root: str, out: str) -> None:
     from streammos_tpu_torch.config import get_config
     from streammos_tpu_torch.ops import fused_header as fh
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(THIS_ROOT, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    spec = importlib.util.spec_from_file_location("kernel_times", os.path.join(
+        THIS_ROOT, "streammos_tpu_torch", "tools", "kernel_times.py"))
+    kt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kt)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    m = get_config("StreamMOS_seg").model
-    T, C, Cout = m.seq_num, m.context_layers[0], m.context_layers[1]
-    Hh, Wh = m.voxel.bev_wl[0] // 2, m.voxel.bev_wl[1] // 2
+    T, C, Cout, Hh, Wh = kt.header_shape(get_config("StreamMOS_seg"))
     res = {"root": root, "module": fh.__file__}
     for dtype, key in ((torch.bfloat16, "bfloat16"),
                        (torch.float32, "float32")):
-        args = smoke.header_inputs(torch.Generator().manual_seed(smoke.SEED),
-                                   "cuda", 1, T, C, Cout, Hh, Wh, dtype)
+        args = kt.header_inputs(torch.Generator().manual_seed(kt.SEED),
+                                "cuda", 1, T, C, Cout, Hh, Wh, dtype)
         got = fh.fused_header_tta(*args, T)
-        res[key + "_ms"] = smoke.time_ms(lambda: fh.fused_header_tta(*args, T),
-                                         REPS)
+        res[key + "_ms"] = kt.time_ms(lambda: fh.fused_header_tta(*args, T),
+                                      REPS)
         res[key + "_out"] = got.cpu()
         if dtype == torch.float32:
             want = fh.fused_header_reference(*args, T)
             diff = (got - want).abs()
             res["float32_err"] = float(diff.max())
             res["float32_excess"] = float(
-                (diff - smoke.F32_TOL * (1 + want.abs())).max())
+                (diff - kt.F32_TOL * (1 + want.abs())).max())
         del args, got
     torch.save(res, out)
 

@@ -1,0 +1,383 @@
+"""Time the port's hand kernels on one CUDA card at the shapes of a
+StreamMOS_seg frame, each beside its plain version, its library call where
+there is one, and its bound:
+
+    python -m streammos_tpu_torch.tools.kernel_times
+
+Prints the card's name and power limit, the kernels' build time and each
+kernel library's ptxas lines, then one JSON line a kernel (`name`) under
+the keys of PERF.md's kernel table: `ms`, `plain_ms`, `library_ms` (the
+call issued from Python, CUDA events, the mean of back-to-back calls),
+`device_ms`, `library_device_ms`, `plain_device_ms` (the call replayed
+from a CUDA graph: the card's time without the host's cost of issuing
+it), `bound_ms` (the larger of the bytes the function needs, each read or
+written once, over 3.35 TB/s and its operations over the peak rate; which
+of the two in `bound_by`) and `mb`. The scatter kernels and the gather
+add a row a site (`sites`); the scatters' top-level times are those of
+their largest site, the gather's are summed over the five sites of a
+frame.
+
+Inputs: the fused header's drawn from the seed at StreamMOS_seg's
+production shape (`header_inputs`); the scatters' coordinates those of a
+range-skewed frame of POINTS points x T at the five scatter sites, the
+features drawn from the seed (`scatter_sites`); the gather's the grids and
+coordinates the model hands over in an eager step (`gather_sites`). TF32
+is off. The card tests (`tests/test_torch_cuda.py`) hold the kernels'
+results against their plain versions on the same inputs; this tool times
+them. It exits non-zero on a card whose peaks it does not know (the
+bounds are the H100 SXM's) and when the float32 header kernel is not
+faster than its plain version.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+SEED = 0
+POINTS = 160_000
+REPS = 20
+# published peaks of the H100 SXM part at 700 W (NVIDIA data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
+F32_FLOP_PER_S = 67e12  # outside the tensor cores
+F32_TOL = 1e-4  # the float32 header kernel against its plain version
+GATHER_SITES = ("bev0", "rv0", "bev1", "rv1", "point")
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call over `reps` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of one call of `fn` replayed from a CUDA graph: the
+    card's time for its launches without the host's cost of issuing them
+    (the eager `time_ms` of a small call measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and builds outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
+def timed(kernel, plain, library=None, plain_graph=False) -> dict:
+    """The kernel's, its plain version's and its library call's times."""
+    out = dict(ms=time_ms(kernel, REPS), device_ms=graph_ms(kernel, REPS),
+               plain_ms=time_ms(plain, 3, warmup=1))
+    if plain_graph:
+        out["plain_device_ms"] = graph_ms(plain, 3)
+    if library is not None:
+        out.update(library_ms=time_ms(library, REPS),
+                   library_device_ms=graph_ms(library, REPS))
+    return out
+
+
+def bound(nbytes: int, ops_ms: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                mb=nbytes / 1e6)
+
+
+def header_inputs(gen, dev, Bt, T, C, Cout, Hh, Wh, dtype):
+    """Random fused-header inputs: non-negative phase grid (the scatter of
+    post-ReLU features) with empty padding rows, kernels, affines (the pool
+    scale may be negative)."""
+    g = torch.relu(torch.randn(Bt * T, 4, Hh + 2, Wh, 4 * C, generator=gen))
+    g[:, :, 0] = 0
+    g[:, :, -1] = 0
+    k3 = torch.randn(3, 3, T * C, Cout, generator=gen) * (9 * T * C) ** -0.5
+    k1 = torch.randn(1, 1, T * C, Cout, generator=gen) * (T * C) ** -0.5
+    ca = (torch.rand(Cout, generator=gen) + 0.5,
+          torch.randn(Cout, generator=gen) * 0.1)
+    pa = (torch.rand(Cout, generator=gen) * 3 - 1.5,
+          torch.randn(Cout, generator=gen) * 0.1)
+    to = lambda t: t.to(dev, dtype)
+    return (to(g), to(k3), to(k1), tuple(a.to(dev) for a in ca),
+            tuple(a.to(dev) for a in pa))
+
+
+def header_shape(cfg):
+    """(T, C, Cout, Hh, Wh) of `cfg`'s fused header."""
+    m = cfg.model
+    return (m.seq_num, m.context_layers[0], m.context_layers[1],
+            m.voxel.bev_wl[0] // 2, m.voxel.bev_wl[1] // 2)
+
+
+def header_entries(dev, cfg):
+    """The bf16 kernel (tensor cores, bf16) and the float32 one (3xTF32) at
+    the production shape, with the weight packing included in `ms`."""
+    from streammos_tpu_torch.ops import fused_header as fh
+
+    T, C, Cout, Hh, Wh = header_shape(cfg)
+    flops = 2 * 4 * Hh * Wh * Cout * T * C * (9 + 4)
+    entries = []
+    for dtype, seed in ((torch.bfloat16, SEED), (torch.float32, SEED + 1)):
+        args = header_inputs(torch.Generator().manual_seed(seed), dev, 1, T,
+                             C, Cout, Hh, Wh, dtype)
+        g, k3, k1 = args[:3]
+        out = fh.fused_header_tta(*args, T)
+        # the padding row above and below each phase plane is never read
+        nbytes = (g[:, :, 1:-1].numel() * g.element_size() + 4 * Cout * 4
+                  + sum(t.numel() * t.element_size() for t in (k3, k1, out)))
+        if dtype == torch.bfloat16:
+            ops_ms = flops / BF16_FLOP_PER_S * 1e3
+        else:  # three TF32 products a multiply-add
+            ops_ms = 3 * flops / TF32_FLOP_PER_S * 1e3
+        e = {"name": ("fused_header_tta" if dtype == torch.bfloat16
+                      else "fused_header_tta_float32"),
+             "source": "streammos_tpu_torch/csrc/fused_header.cu",
+             "replaces": "streammos_tpu/ops/fused_header.py:198",
+             "dtype": str(dtype).split(".")[1], "shape": list(g.shape),
+             **timed(lambda: fh.fused_header_tta(*args, T),
+                     lambda: fh.fused_header_reference(*args, T)),
+             "library_ms": None, **bound(nbytes, ops_ms), "gflop": flops / 1e9}
+        if dtype == torch.bfloat16:
+            e["pack_ms"] = time_ms(lambda: fh.pack_header_weights(k3, k1, T),
+                                   REPS)
+        else:
+            e["fp32_fma_bound_ms"] = flops / F32_FLOP_PER_S * 1e3
+        e["bound_share"] = e["bound_ms"] / e["device_ms"]
+        entries.append(e)
+    return entries
+
+
+def scatter_sites(cfg, dev):
+    """The five scatter sites of one main-path frame, each a dict: `name`,
+    `call` (the call site), `feat` (B, N, C) non-negative bfloat16 features
+    drawn from the seed, `inds` (coordinates from
+    `featurize(tta_expand_folded(...))` of a range-skewed frame of POINTS
+    points) and `args` (the rest of `voxel_max_pool`'s arguments, nonneg
+    set)."""
+    from streammos_tpu_torch.models.stream_mos import (featurize,
+                                                       tta_expand_folded)
+    from streammos_tpu_torch.ops.tta_fold import V_TTA
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    m = cfg.model
+    T, (H, W), (rv_h, rv_w) = m.seq_num, m.voxel.bev_wl, m.voxel.rv_shape
+    c0, c1, c2, _ = (V_TTA * c for c in m.context_layers)
+    xyzi = torch.from_numpy(skewed_scan_bank(np.random.default_rng(SEED), 1, T,
+                                             POINTS)[0]).to(dev)
+    batch = featurize(tta_expand_folded(xyzi), m)
+    bev, rv = batch["bev_coord"], batch["rv_coord"]
+    full = bev[..., 0, :].reshape(T, POINTS, 3)[..., :2]
+    cur_bev, cur_rv = bev[:, 0, :, 0, :2], rv[:, 0, :, 0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sites = []
+    for name, call, inds, size, scale, split, pad, C in (
+            ("full grid", "models/stream_mos.py:125", full, (H, W),
+             (1.0, 1.0), "outer", 1, c0),
+            ("stage-0 RV", "nn/encoder.py:116", cur_rv,
+             (rv_h // 2, rv_w // 2), (0.5, 0.5), False, 0, c1),
+            ("stage-0 BEV", "nn/encoder.py:120", cur_bev, (H // 2, W // 2),
+             (0.5, 0.5), False, 0, c1),
+            ("stage-1 RV", "nn/encoder.py:126", cur_rv,
+             (rv_h // 4, rv_w // 4), (0.25, 0.25), False, 0, c2),
+            ("stage-1 BEV", "nn/encoder.py:130", cur_bev, (H // 4, W // 4),
+             (0.25, 0.25), False, 0, c2)):
+        feat = torch.relu(torch.randn(inds.shape[0], POINTS, C, generator=gen,
+                                      device=dev)).to(torch.bfloat16)
+        sites.append(dict(name=name, call=call, feat=feat, inds=inds,
+                          args=(size, scale, True, split, pad)))
+    return sites
+
+
+def scatter_library(rows, ids, cells: int, include_self: bool):
+    """The library call: one `scatter_reduce_(..., "amax")` into a zero
+    grid with a sentinel row (the impl="auto" body)."""
+    C = rows.shape[-1]
+    grid = torch.zeros((cells + 1, C), dtype=rows.dtype, device=rows.device)
+    grid.scatter_reduce_(0, ids.long()[:, None].expand(-1, C), rows, "amax",
+                         include_self=include_self)
+    return grid[:-1]
+
+
+def scatter_entries(dev, cfg):
+    """The sorted kernel at the five sites, on the rows
+    `voxel_max_pool(impl="pallas")` sorts, and the one-grid kernel at the
+    four cascade sites (the full grid fails `fits_vmem`), on the per-batch
+    ids `impl="vmem"` passes. The bound: the valid rows and the ids read
+    once (the sorted kernel reads no row of a sentinel id), the grid
+    written once, or a maximum a valid row element on the CUDA cores."""
+    from streammos_tpu_torch.ops import pallas_scatter as ps
+    from streammos_tpu_torch.ops import pallas_scatter_vmem as pv
+    from streammos_tpu_torch.ops.voxel_pool import _cell_ids
+
+    rows = {"sorted": [], "grid": []}
+    for s in scatter_sites(cfg, dev):
+        feat, (size, scale, _, split, pad) = s["feat"], s["args"]
+        B, N, C = feat.shape
+        flat, valid, n = _cell_ids(s["inds"], size, scale, split, pad)
+        off = torch.arange(B, device=dev)[:, None] * n
+        glob = torch.where(valid, flat + off, B * n).to(torch.int32).reshape(-1)
+        n_valid, item = int(valid.sum()), feat.element_size()
+        grid_bytes = B * n * C * item
+        ids_sorted, perm = torch.sort(glob)
+        rows_sorted = feat.reshape(-1, C).index_select(0, perm)
+        site = dict(site=s["name"], call=s["call"], rows=[B * N, C],
+                    valid_rows=n_valid, grid=[B, n])
+        ops_ms = n_valid * C / F32_FLOP_PER_S * 1e3
+        rows["sorted"].append(dict(site, **timed(
+            lambda: ps.sorted_scatter_max(rows_sorted, ids_sorted, B * n),
+            lambda: ps.sorted_scatter_max_reference(rows_sorted, ids_sorted,
+                                                    B * n),
+            lambda: scatter_library(rows_sorted, ids_sorted, B * n, False)),
+            **bound(n_valid * C * item + n_valid * 4 + grid_bytes, ops_ms)))
+        if pv.fits_vmem(n, C, item):
+            ids = flat.to(torch.int32)
+            rows["grid"].append(dict(site, **timed(
+                lambda: pv.scatter_max_vmem(feat, ids, n),
+                lambda: pv.scatter_max_vmem_reference(feat, ids, n),
+                lambda: scatter_library(feat.reshape(-1, C), glob, B * n,
+                                        True)),
+                **bound(n_valid * C * item + ids.numel() * 4 + grid_bytes,
+                        ops_ms)))
+    entries = []
+    for key, name, lib, replaces in (
+            ("sorted", "sorted_scatter_max", "sorted_scatter",
+             "streammos_tpu/ops/pallas_scatter.py:49"),
+            ("grid", "scatter_max_vmem", "scatter_grid",
+             "streammos_tpu/ops/pallas_scatter_vmem.py:75")):
+        largest = max(rows[key], key=lambda r: r["mb"])
+        entries.append({
+            "name": name, "source": f"streammos_tpu_torch/csrc/{lib}.cu",
+            "replaces": replaces, "dtype": "bfloat16",
+            "site": largest["site"],
+            **{k: largest[k] for k in (
+                "ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms", "bound_by", "mb")},
+            "library_call": "torch.zeros + scatter_reduce_(amax) with a "
+                            "sentinel row (the impl='auto' body)",
+            "sites": rows[key]})
+    return entries
+
+
+def gather_sites(cfg, dev):
+    """The five folded TTA gathers of one eager main-path step of `cfg`'s
+    model (weights and a range-skewed frame of POINTS points from the
+    seed): [(site, (grids, coords, scale, kind))], the arguments as the
+    model hands them over (its compute dtype, strides as they come)."""
+    from streammos_tpu_torch import serve
+    from streammos_tpu_torch.models import stream_mos
+    from streammos_tpu_torch.nn import encoder
+    from streammos_tpu_torch.ops import tta_fold
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    model = serve.build_model(cfg, with_refine=True, device=dev, seed=SEED)
+    xyzi = torch.from_numpy(skewed_scan_bank(np.random.default_rng(SEED), 1,
+                                             cfg.model.seq_num, POINTS)[0])
+    sites = []
+
+    def spy(*args):
+        sites.append(args)
+        return tta_fold.grid_to_point_tta(*args)
+
+    encoder.grid_to_point_tta = stream_mos.grid_to_point_tta = spy
+    try:
+        with torch.inference_mode():
+            serve.eval_step(model, xyzi.to(dev), serve.initial_memory(model),
+                            False)
+    finally:
+        encoder.grid_to_point_tta = stream_mos.grid_to_point_tta = \
+            tta_fold.grid_to_point_tta
+    return list(zip(GATHER_SITES, sites))
+
+
+def gather_entry(dev, cfg):
+    """The folded gather at the five sites of a frame; the bound: the grid,
+    the coordinates and the output once each."""
+    from streammos_tpu_torch.ops.tta_fold import (
+        grid_to_point_tta, grid_to_point_tta_reference)
+
+    rows = []
+    with torch.inference_mode():
+        for name, (g, coords, scale, kind) in gather_sites(cfg, dev):
+            V, B, H, W, C = g.shape
+            out = grid_to_point_tta(g, coords, scale, kind)
+            nbytes = (g.numel() * g.element_size() + coords.shape[1] * B * 8
+                      + out.numel() * out.element_size())
+            rows.append(dict(
+                site=name, kind=kind, grid=list(g.shape),
+                strides=list(g.stride()), points=coords.shape[1],
+                **timed(lambda: grid_to_point_tta(g, coords, scale, kind),
+                        lambda: grid_to_point_tta_reference(g, coords, scale,
+                                                            kind),
+                        plain_graph=True),
+                **bound(nbytes, 0.0)))
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "mb")}
+    return {"name": "grid_to_point_tta",
+            "source": "streammos_tpu_torch/csrc/grid_gather_tta.cu",
+            "replaces": None, "dtype": "bfloat16", **total,
+            "bound_by": "bytes", "library_ms": None,
+            "bound_share": total["bound_ms"] / total["device_ms"],
+            "sites": rows}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_times: CUDA is not available", file=sys.stderr)
+        return 1
+    from streammos_tpu_torch import build
+    from streammos_tpu_torch.config import get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()
+    print(json.dumps({"card": name, "nvidia_smi": smi[0] if smi else None,
+                      "torch": torch.__version__, "cuda": torch.version.cuda}),
+          flush=True)
+    if not ("H100" in name and "PCIe" not in name and "NVL" not in name):
+        print(f"kernel_times: no published peaks for card {name!r}",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:  # one nvcc a kernel
+        list(pool.map(build.load_library, build.SOURCES))
+    print(json.dumps({"build_s": time.perf_counter() - t0,
+                      "ptxas": {lib: build.ptxas_lines(lib)
+                                for lib in sorted(build.SOURCES)}}),
+          flush=True)
+    cfg = get_config("StreamMOS_seg")
+    ok = True
+    for entry in (*header_entries(dev, cfg), *scatter_entries(dev, cfg),
+                  gather_entry(dev, cfg)):
+        print(json.dumps(entry), flush=True)
+        if entry["name"] == "fused_header_tta_float32" and not (
+                entry["ms"] < entry["plain_ms"]):
+            print(f"kernel_times: the float32 header kernel ({entry['ms']} "
+                  f"ms) is not faster than its plain version "
+                  f"({entry['plain_ms']} ms)", file=sys.stderr)
+            ok = False
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -119,8 +119,8 @@ def resolve_vote_backend(vote: str) -> bool:
     """Map the --vote choice to use_device (True: the torch vote on
     --device). 'auto' resolves to the device.
 
-    The rule follows the H100's own measurement (`chip_smoke.py`'s voting
-    phase, NVIDIA H100 80GB HBM3, 700.00 W, a host of 8 cores): the voting
+    The rule follows the H100's own measurement (a chip run of the port,
+    NVIDIA H100 80GB HBM3, 700.00 W, a host of 8 cores): the voting
     CLI with --instance over 12 frames of 125k-point scans, 8 workers,
     took 0.0636 s/frame on the device against 0.2398 in numpy (pool
     start-up included; 0.0283 against 0.0578 after the first frame), and
