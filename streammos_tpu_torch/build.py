@@ -29,6 +29,7 @@ SOURCES: Dict[str, str] = {
     "sorted_scatter": "csrc/sorted_scatter.cu",
     "scatter_grid": "csrc/scatter_grid.cu",
     "grid_gather_tta": "csrc/grid_gather_tta.cu",
+    "scatter_tta": "csrc/scatter_tta.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -216,9 +216,9 @@ class StreamMOSNet(nn.Module):
                 # full-grid scatter straight into the fused header's
                 # phase-outer, row-padded layout (canonical cell ids;
                 # features are post-ReLU)
-                bev = voxel_max_pool(point_feat, coords0[..., :2], (H, W),
-                                     (1.0, 1.0), nonneg=True,
-                                     phase_split="outer", row_pad=1)
+                bev = voxel_max_pool_tta(point_feat, coords0, (H, W),
+                                         (1.0, 1.0), "bev", nonneg=True,
+                                         layout="phase_outer")
                 header_T = T
             else:
                 # every variant's full grid in its own orientation, then

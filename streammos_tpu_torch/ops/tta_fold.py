@@ -10,11 +10,12 @@ features side by side on channels, then orients each variant's grid; the
 gather aligns each variant's grid back to canonical coordinates and reads
 all variants' bilinear taps in one row per tap.
 
-`grid_to_point_tta` launches the hand-written CUDA kernel
-`csrc/grid_gather_tta.cu` for CUDA tensors (it replaces no TPU kernel: JAX's
-op is plain XLA) and runs the plain version `grid_to_point_tta_reference`
-for CPU tensors. There is no other path: a CUDA tensor the kernel cannot
-take raises.
+`voxel_max_pool_tta` and `grid_to_point_tta` launch the hand-written CUDA
+kernels `csrc/scatter_tta.cu` and `csrc/grid_gather_tta.cu` for CUDA tensors
+(they replace no TPU kernel: JAX's ops are plain XLA) and run the plain
+versions `voxel_max_pool_tta_reference` and `grid_to_point_tta_reference`
+for CPU tensors. There is no other path: a CUDA tensor a kernel cannot take
+raises. Neither kernel has a backward: the folded layout is eval only.
 
 Variant order: (+x,+y), (+x,-y), (-x,+y), (-x,-y).
 """
@@ -72,15 +73,28 @@ def orient_grid(grid: torch.Tensor, v: int, kind: str,
     return grid
 
 
-def voxel_max_pool_tta(feat: torch.Tensor, coords0: torch.Tensor,
-                       out_size: Tuple[int, int],
-                       scale_rate: Sequence[float], kind: str,
-                       nonneg: bool = False) -> torch.Tensor:
-    """Scatter all variants in one max-pool.
+LAYOUTS = ("variants", "phase_outer")
 
-    feat (B, N, V*C) variants folded as v-major channel blocks; coords0
-    (B, N, >=2) variant-0 fractional coords. Returns (V, B, H, W, C), each
-    variant's grid in its own orientation."""
+
+def _check_layout(layout: str) -> None:
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}; expected one of "
+                         f"{LAYOUTS}")
+
+
+def voxel_max_pool_tta_reference(feat: torch.Tensor, coords0: torch.Tensor,
+                                 out_size: Tuple[int, int],
+                                 scale_rate: Sequence[float], kind: str,
+                                 nonneg: bool = False,
+                                 layout: str = "variants") -> torch.Tensor:
+    """Plain version of `voxel_max_pool_tta`: one `voxel_max_pool` over the
+    variant-0 cell ids with the variants side by side on channels; for
+    "variants", then each variant's grid oriented and the four stacked."""
+    _check_layout(layout)
+    _transforms(kind)  # raises on an unknown kind
+    if layout == "phase_outer":
+        return voxel_max_pool(feat, coords0[..., :2], out_size, scale_rate,
+                              nonneg, phase_split="outer", row_pad=1)
     B, N, VC = feat.shape
     if VC % V_TTA:
         raise ValueError(f"folded width {VC} is not a multiple of {V_TTA}")
@@ -90,6 +104,93 @@ def voxel_max_pool_tta(feat: torch.Tensor, coords0: torch.Tensor,
     grid = grid.reshape(B, H, W, V_TTA, C)
     return torch.stack([orient_grid(grid[..., v, :], v, kind, (1, 2))
                         for v in range(V_TTA)])
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_library():
+    lib = load_library("scatter_tta")
+    fn = lib.streammos_scatter_tta
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return lib
+
+
+def voxel_max_pool_tta(feat: torch.Tensor, coords0: torch.Tensor,
+                       out_size: Tuple[int, int],
+                       scale_rate: Sequence[float], kind: str,
+                       nonneg: bool = False,
+                       layout: str = "variants") -> torch.Tensor:
+    """Scatter all variants in one max-pool.
+
+    feat (B, N, V*C) variants folded as v-major channel blocks; coords0
+    (B, N, >=2) variant-0 fractional coords. Returns, for layout
+    "variants", (V, B, H, W, C), each variant's grid in its own
+    orientation; for "phase_outer", (B, 4, H/2 + 2, W/2, V*C), the
+    canonical grid in `voxel_max_pool(..., phase_split="outer",
+    row_pad=1)`'s layout, which the fused header reads. CPU tensors run
+    `voxel_max_pool_tta_reference`. CUDA tensors launch the kernel:
+    nonneg=True, float32 or bfloat16 features whose C channels fill whole
+    16-byte slices (channels innermost, rows 16-byte aligned), float32
+    coordinates, an even grid; anything else raises. The kernel's output
+    carries no gradient."""
+    _check_layout(layout)
+    _transforms(kind)  # raises on an unknown kind
+    if feat.dim() != 3 or feat.shape[2] % V_TTA:
+        raise ValueError(f"need feat (B, N, {V_TTA} * C), got "
+                         f"{tuple(feat.shape)}")
+    B, N, VC = feat.shape
+    if (coords0.dim() != 3 or coords0.shape[:2] != feat.shape[:2]
+            or coords0.shape[2] < 2):
+        raise ValueError(f"need coords0 ({B}, {N}, >=2), got "
+                         f"{tuple(coords0.shape)}")
+    if feat.device.type == "cpu" and coords0.device.type == "cpu":
+        return voxel_max_pool_tta_reference(feat, coords0, out_size,
+                                            scale_rate, kind, nonneg, layout)
+    if not feat.is_cuda or coords0.device != feat.device:
+        raise ValueError(f"no TTA scatter for devices {feat.device}, "
+                         f"{coords0.device}")
+    if not nonneg:
+        raise ValueError("the TTA scatter kernel needs nonneg=True (it maxes "
+                         "into a zeroed grid)")
+    if feat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"TTA scatter kernel takes float32 or bfloat16 "
+                        f"features, got {feat.dtype}")
+    if coords0.dtype != torch.float32:
+        raise TypeError(f"TTA scatter kernel takes float32 coordinates, got "
+                        f"{coords0.dtype}")
+    H, W = (int(s) for s in out_size)
+    if H < 2 or W < 2 or H % 2 or W % 2:
+        raise ValueError(f"TTA scatter kernel needs an even grid, got "
+                         f"{tuple(out_size)}")
+    C, item = VC // V_TTA, feat.element_size()
+    strides = feat.stride()
+    if (C * item % 16 or strides[2] != 1 or feat.data_ptr() % 16
+            or any(s * item % 16 for s in strides[:2])):
+        raise ValueError(f"TTA scatter kernel needs C * itemsize a multiple "
+                         f"of 16 bytes and the channels innermost, rows "
+                         f"16-byte aligned: C={C}, {feat.dtype}, strides "
+                         f"{strides}")
+    outer = layout == "phase_outer"
+    shape = ((B, 4, H // 2 + 2, W // 2, VC) if outer
+             else (V_TTA, B, H, W, C))
+    dev = feat.device
+    out = torch.empty(shape, dtype=feat.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _scatter_library().streammos_scatter_tta(
+            feat.data_ptr(), coords0.data_ptr(), out.data_ptr(), B, N, H, W,
+            C, (ctypes.c_longlong * 3)(*strides),
+            (ctypes.c_longlong * 3)(*coords0.stride()),
+            float(np.float32(scale_rate[0])), float(np.float32(scale_rate[1])),
+            int(kind == "rv"), int(outer), int(feat.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"TTA scatter kernel launch failed: CUDA error "
+                           f"{err}")
+    profiling.count("kernel.scatter_tta")
+    return out
 
 
 def _ext_table(grid: torch.Tensor, tr: str, axis: int) -> torch.Tensor:

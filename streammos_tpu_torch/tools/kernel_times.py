@@ -12,16 +12,17 @@ call issued from Python, CUDA events, the mean of back-to-back calls),
 from a CUDA graph: the card's time without the host's cost of issuing
 it), `bound_ms` (the larger of the bytes the function needs, each read or
 written once, over 3.35 TB/s and its operations over the peak rate; which
-of the two in `bound_by`) and `mb`. The scatter kernels and the gather
-add a row a site (`sites`); the scatters' top-level times are those of
-their largest site, the gather's are summed over the five sites of a
-frame.
+of the two in `bound_by`) and `mb`. The scatter kernels, the folded TTA
+scatter and the gather add a row a site (`sites`); the two unfolded
+scatters' top-level times are those of their largest site, the folded
+scatter's and the gather's are summed over the five sites of a frame.
 
 Inputs: the fused header's drawn from the seed at StreamMOS_seg's
-production shape (`header_inputs`); the scatters' coordinates those of a
-range-skewed frame of POINTS points x T at the five scatter sites, the
-features drawn from the seed (`scatter_sites`); the gather's the grids and
-coordinates the model hands over in an eager step (`gather_sites`). TF32
+production shape (`header_inputs`); the scatters' (the folded one's too)
+coordinates those of a range-skewed frame of POINTS points x T at the
+five scatter sites, the features drawn from the seed (`scatter_sites`);
+the gather's the grids and coordinates the model hands over in an eager
+step (`gather_sites`). TF32
 is off. The card tests (`tests/test_torch_cuda.py`) hold the kernels'
 results against their plain versions on the same inputs; this tool times
 them. It exits non-zero on a card whose peaks it does not know (the
@@ -164,13 +165,14 @@ def header_entries(dev, cfg):
     return entries
 
 
-def scatter_sites(cfg, dev):
-    """The five scatter sites of one main-path frame, each a dict: `name`,
-    `call` (the call site), `feat` (B, N, C) non-negative bfloat16 features
-    drawn from the seed, `inds` (coordinates from
-    `featurize(tta_expand_folded(...))` of a range-skewed frame of POINTS
-    points) and `args` (the rest of `voxel_max_pool`'s arguments, nonneg
-    set)."""
+def scatter_sites(cfg, dev, Bt: int = 1, dtype=torch.bfloat16):
+    """The five scatter sites of one main-path step of Bt streams, each a
+    dict: `name`, `span` (its `smt.scatter.*` span), `call` (the call
+    site), `kind` and `layout` (`voxel_max_pool_tta`'s), `feat` (B, N, C)
+    non-negative features of `dtype` drawn from the seed, `inds`
+    (coordinates from `featurize(tta_expand_folded(...))` of range-skewed
+    frames of POINTS points, strided as the model hands them over) and
+    `args` (the rest of `voxel_max_pool`'s arguments, nonneg set)."""
     from streammos_tpu_torch.models.stream_mos import (featurize,
                                                        tta_expand_folded)
     from streammos_tpu_torch.ops.tta_fold import V_TTA
@@ -179,28 +181,31 @@ def scatter_sites(cfg, dev):
     m = cfg.model
     T, (H, W), (rv_h, rv_w) = m.seq_num, m.voxel.bev_wl, m.voxel.rv_shape
     c0, c1, c2, _ = (V_TTA * c for c in m.context_layers)
-    xyzi = torch.from_numpy(skewed_scan_bank(np.random.default_rng(SEED), 1, T,
-                                             POINTS)[0]).to(dev)
+    xyzi = torch.from_numpy(skewed_scan_bank(np.random.default_rng(SEED), Bt,
+                                             T, POINTS)[:, 0]).to(dev)
     batch = featurize(tta_expand_folded(xyzi), m)
     bev, rv = batch["bev_coord"], batch["rv_coord"]
-    full = bev[..., 0, :].reshape(T, POINTS, 3)[..., :2]
+    full = bev[..., 0, :].reshape(Bt * T, POINTS, 3)[..., :2]
     cur_bev, cur_rv = bev[:, 0, :, 0, :2], rv[:, 0, :, 0]
     gen = torch.Generator(device=dev).manual_seed(SEED)
     sites = []
-    for name, call, inds, size, scale, split, pad, C in (
-            ("full grid", "models/stream_mos.py:125", full, (H, W),
-             (1.0, 1.0), "outer", 1, c0),
-            ("stage-0 RV", "nn/encoder.py:116", cur_rv,
+    for name, span, call, inds, size, scale, split, pad, C in (
+            ("full grid", "bev_full", "models/stream_mos.py:219", full,
+             (H, W), (1.0, 1.0), "outer", 1, c0),
+            ("stage-0 RV", "rv0", "nn/encoder.py:134", cur_rv,
              (rv_h // 2, rv_w // 2), (0.5, 0.5), False, 0, c1),
-            ("stage-0 BEV", "nn/encoder.py:120", cur_bev, (H // 2, W // 2),
-             (0.5, 0.5), False, 0, c1),
-            ("stage-1 RV", "nn/encoder.py:126", cur_rv,
+            ("stage-0 BEV", "bev0", "nn/encoder.py:140", cur_bev,
+             (H // 2, W // 2), (0.5, 0.5), False, 0, c1),
+            ("stage-1 RV", "rv1", "nn/encoder.py:148", cur_rv,
              (rv_h // 4, rv_w // 4), (0.25, 0.25), False, 0, c2),
-            ("stage-1 BEV", "nn/encoder.py:130", cur_bev, (H // 4, W // 4),
-             (0.25, 0.25), False, 0, c2)):
+            ("stage-1 BEV", "bev1", "nn/encoder.py:154", cur_bev,
+             (H // 4, W // 4), (0.25, 0.25), False, 0, c2)):
         feat = torch.relu(torch.randn(inds.shape[0], POINTS, C, generator=gen,
-                                      device=dev)).to(torch.bfloat16)
-        sites.append(dict(name=name, call=call, feat=feat, inds=inds,
+                                      device=dev)).to(dtype)
+        sites.append(dict(name=name, span="smt.scatter." + span, call=call,
+                          kind="rv" if "RV" in name else "bev",
+                          layout="phase_outer" if split else "variants",
+                          feat=feat, inds=inds,
                           args=(size, scale, True, split, pad)))
     return sites
 
@@ -273,6 +278,67 @@ def scatter_entries(dev, cfg):
                             "sentinel row (the impl='auto' body)",
             "sites": rows[key]})
     return entries
+
+
+def scatter_tta_library(feat, ids, cells: int, site: dict):
+    """The library call of a folded scatter site: `scatter_library` into a
+    zero grid with a sentinel row (ids precomputed), then, in the variants
+    layout, each variant's grid oriented and the four stacked."""
+    from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
+
+    B, N, VC = feat.shape
+    grid = scatter_library(feat.reshape(-1, VC), ids, cells, True)
+    size = site["args"][0]
+    if site["layout"] == "phase_outer":
+        return grid.reshape(B, 4, size[0] // 2 + 2, size[1] // 2, VC)
+    grid = grid.reshape(B, *size, V_TTA, VC // V_TTA)
+    return torch.stack([orient_grid(grid[..., v, :], v, site["kind"], (1, 2))
+                        for v in range(V_TTA)])
+
+
+def scatter_tta_entry(dev, cfg):
+    """The folded TTA scatter kernel at the five sites of a frame, on the
+    inputs of `scatter_sites`; beside it the plain version (the cell ids,
+    `voxel_max_pool`, orientation and stack) and the library call. The
+    bound: the rows, the coordinates and the output once each."""
+    from streammos_tpu_torch.ops import tta_fold
+    from streammos_tpu_torch.ops.voxel_pool import _cell_ids
+
+    rows = []
+    with torch.inference_mode():
+        for s in scatter_sites(cfg, dev):
+            feat, inds, (size, scale, _, split, pad) = (s["feat"], s["inds"],
+                                                        s["args"])
+            B, N, VC = feat.shape
+            args = (size, scale, s["kind"], True, s["layout"])
+            out = tta_fold.voxel_max_pool_tta(feat, inds, *args)
+            flat, valid, n = _cell_ids(inds, size, scale, split, pad)
+            off = torch.arange(B, device=dev)[:, None] * n
+            glob = torch.where(valid, flat + off, B * n).reshape(-1)
+            nbytes = (feat.numel() * feat.element_size() + B * N * 8
+                      + out.numel() * out.element_size())
+            rows.append(dict(
+                site=s["name"], span=s["span"], call=s["call"],
+                kind=s["kind"], layout=s["layout"], rows=[B, N, VC],
+                valid_rows=int(valid.sum()), grid=list(out.shape),
+                **timed(lambda: tta_fold.voxel_max_pool_tta(feat, inds, *args),
+                        lambda: tta_fold.voxel_max_pool_tta_reference(
+                            feat, inds, *args),
+                        lambda: scatter_tta_library(feat, glob, B * n, s),
+                        plain_graph=True),
+                **bound(nbytes, 0.0)))
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+        "library_device_ms", "bound_ms", "mb")}
+    return {"name": "voxel_max_pool_tta",
+            "source": "streammos_tpu_torch/csrc/scatter_tta.cu",
+            "replaces": None, "dtype": "bfloat16", **total,
+            "bound_by": "bytes",
+            "library_call": "torch.zeros + scatter_reduce_(amax) with a "
+                            "sentinel row, then orient + stack (the plain "
+                            "version without the cell ids)",
+            "bound_share": total["bound_ms"] / total["device_ms"],
+            "sites": rows}
 
 
 def gather_sites(cfg, dev):
@@ -368,7 +434,7 @@ def main() -> int:
     cfg = get_config("StreamMOS_seg")
     ok = True
     for entry in (*header_entries(dev, cfg), *scatter_entries(dev, cfg),
-                  gather_entry(dev, cfg)):
+                  scatter_tta_entry(dev, cfg), gather_entry(dev, cfg)):
         print(json.dumps(entry), flush=True)
         if entry["name"] == "fused_header_tta_float32" and not (
                 entry["ms"] < entry["plain_ms"]):

@@ -1,6 +1,7 @@
 """Cell-id distributions that stress the scatter-max kernels, numpy only
-(shared by `tests/test_torch_scatter.py`, against JAX on the CPU, and
-`tests/test_torch_cuda.py`, on the card, which imports no jax).
+(shared by `tests/test_torch_scatter.py`, against JAX on the CPU,
+`tests/test_torch_scatter_tta.py`, and `tests/test_torch_cuda.py`, on the
+card, which imports no jax).
 
 Each case is (ids, n_cells): int32 ids in [0, n_cells] (n_cells is the
 sentinel of invalid points), unsorted, with the last cell empty where the
@@ -63,3 +64,15 @@ def sort_by_id(ids: np.ndarray, rows: np.ndarray):
     """The rows in ascending id order, as `scatter_max_pallas` sorts them."""
     order = np.argsort(ids, kind="stable")
     return ids[order], rows[order]
+
+
+def case_coords(ids: np.ndarray, n_cells: int, W: int, scale):
+    """float32 (P, 2) coordinates of cell ids on a grid W cells wide, at
+    each cell's centre, the sentinel id one row below the grid, and the
+    grid's (even) number of rows H: (coords, H)."""
+    r, q = np.divmod(ids.astype(np.int64), W)
+    H = -(-n_cells // W)
+    H += H % 2
+    r = np.where(ids == n_cells, H, r)
+    c = np.stack([(r + 0.5) / scale[0], (q + 0.5) / scale[1]], -1)
+    return c.astype(np.float32), H

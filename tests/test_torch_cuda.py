@@ -11,11 +11,13 @@ version; the kernel's 3xTF32 products keep about 22 mantissa bits, its sums
 in another order); bfloat16 (the tensor-core kernel) rtol = atol = 1e-2
 against the plain version run in float32 on the same bfloat16 inputs (the
 kernel rounds its output to bfloat16). The scatter kernels are bit-exact against their plain versions
-and `impl="auto"`, forward and backward: a max does not depend on order.
+and `impl="auto"`, forward and backward: a max does not depend on order
+(the folded TTA scatter: equal in value, +0 and -0 alike).
 The kernels also run at StreamMOS_seg's production shapes, on the inputs
 `streammos_tpu_torch/tools/kernel_times.py` times them on: the header in
-both dtypes, the scatters at the five sites of a frame, the gather at the
-five sites of an eager step.
+both dtypes, the scatters at the five sites of a frame (the folded TTA
+scatter also at Bt = 4 and in float32), the gather at the five sites of an
+eager step.
 The folded TTA gather kernel: float32 within 1e-6 of its plain version
 (the same float32 ops, each rounded once, in the same order); bfloat16
 within one rounding to bfloat16 (rtol 2**-8) of the plain version run in
@@ -464,7 +466,8 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
     """`train.evaluate.stream_eval` over a synthetic two-sequence tree
     (StreamMOS_tiny, float32, random weights from a seed) on the card: one
     fused-header launch a frame and one for the eager warm-up before the
-    carried step's CUDA graphs are captured, no scatter-kernel launch, one
+    carried step's CUDA graphs are captured, and so five of the folded
+    gather and five of the folded scatter, no other scatter kernel, one
     `.label` a frame; the metric within 1e-3 of the same run on the CPU, and at least
     99.5% of the label-file points equal to it (float32 sums in another
     order flip near-ties)."""
@@ -495,7 +498,8 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
             assert len(ds) == 8
             # a frame each, and the warm-up before the one capture
             assert _launched(before) == {"kernel.fused_header.f32": 8 + 1,
-                                         "kernel.grid_gather_tta": 5 * (8 + 1)}
+                                         "kernel.grid_gather_tta": 5 * (8 + 1),
+                                         "kernel.scatter_tta": 5 * (8 + 1)}
         labels[str(dev)] = np.concatenate([
             np.fromfile(root / s / "predictions" / f"{i:06d}.label",
                         dtype=np.uint32)
@@ -632,11 +636,132 @@ def test_grid_gather_kernel_rejects_what_it_cannot_take(cuda):
         gather(grids, coords[:, :, :1])
 
 
+def _check_scatter_tta(feat, coords, size, scale, kind, layout):
+    """The folded TTA scatter kernel, one launch, equal in value to its
+    plain version run on the same card tensors."""
+    args = (size, scale, kind, True, layout)
+    before = profiling.counters()
+    got = t_tta.voxel_max_pool_tta(feat, coords, *args)
+    assert _launched(before) == {"kernel.scatter_tta": 1}
+    want = t_tta.voxel_max_pool_tta_reference(feat, coords, *args)
+    assert got.shape == want.shape and got.dtype == feat.dtype
+    assert torch.equal(got, want)
+    return got
+
+
+def _scatter_tta_case(dev, dtype, kind_of_ids, P, C, W=64, seed=0):
+    """A case of `tests/scatter_cases.py` as cells of a grid W cells wide:
+    (feat (2, P, 4C), coords (2, P, 2) viewed out of a wider array, (H,
+    W))."""
+    rng = np.random.default_rng(seed)
+    ids, n_cells = cases.scatter_case(kind_of_ids, rng, 2 * P)
+    coords, H = cases.case_coords(ids, n_cells, W, (0.5, 0.5))
+    feat = cases.scatter_rows(rng, ids, 4 * C, False).reshape(2, P, 4 * C)
+    wide = np.concatenate([coords.reshape(2, P, 2),
+                           np.zeros((2, P, 1), np.float32)], -1)
+    return (torch.from_numpy(feat).to(dev, dtype),
+            torch.from_numpy(wide).to(dev)[..., :2], (H, W))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["variants", "phase_outer"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_scatter_tta_kernel_adversarial(cuda, kind, dtype, layout):
+    """The id distributions that stress the scatter kernels, at a size
+    that crosses thousands of thread groups, in both grid kinds: equal in
+    value to the plain version."""
+    feat, coords, size = _scatter_tta_case(cuda, dtype, kind, 20_000, 16,
+                                           seed=cases.KINDS.index(kind))
+    for grid_kind in ("bev", "rv"):
+        got = _check_scatter_tta(feat, coords, size, (0.5, 0.5), grid_kind,
+                                 layout)
+        if kind == "sentinel":
+            assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N", [0, 1, 7, 9, 1003])
+def test_scatter_tta_kernel_edge_sizes(cuda, dtype, N):
+    """Point counts below, at and across a thread's group of 8, rows of
+    one 16-byte slice a variant, and batches that end inside a group."""
+    C = 16 // torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    for B in (1, 3):
+        feat = torch.rand(B, N, 4 * C, generator=gen, device=cuda).to(dtype)
+        coords = torch.rand(B, N, 3, generator=gen, device=cuda) * 14 - 2
+        for kind in ("bev", "rv"):
+            for layout in ("variants", "phase_outer"):
+                got = _check_scatter_tta(feat, coords, (6, 10), (1.0, 1.0),
+                                         kind, layout)
+                if N == 0:
+                    assert not got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["variants", "phase_outer"])
+def test_scatter_tta_kernel_replays_in_a_cuda_graph(cuda, layout):
+    feat, coords, size = _scatter_tta_case(cuda, torch.bfloat16, "runs_64",
+                                           5000, 32)
+    call = lambda: t_tta.voxel_max_pool_tta(feat, coords, size, (0.5, 0.5),
+                                            "rv", True, layout)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = profiling.counters()
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _launched(before) == {"kernel.scatter_tta": 1}
+    for shift in (0.0, 3.25):
+        coords.add_(shift)
+        feat.mul_(1.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        assert torch.equal(out, t_tta.voxel_max_pool_tta_reference(
+            feat, coords, size, (0.5, 0.5), "rv", True, layout))
+
+
+@pytest.mark.cuda
+def test_scatter_tta_kernel_rejects_what_it_cannot_take(cuda):
+    feat, coords, size = _scatter_tta_case(cuda, torch.bfloat16, "runs_64",
+                                           50, 16)
+    scatter = lambda f, c, **k: t_tta.voxel_max_pool_tta(
+        f, c, k.pop("size", size), (0.5, 0.5), "bev", k.pop("nonneg", True),
+        **k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        scatter(feat.half(), coords)
+    with pytest.raises(TypeError, match="coordinates"):
+        scatter(feat, coords.double())
+    with pytest.raises(ValueError, match="devices"):
+        scatter(feat, coords.cpu())
+    with pytest.raises(ValueError, match="devices"):
+        scatter(feat.cpu(), coords)
+    with pytest.raises(ValueError, match="nonneg"):
+        scatter(feat, coords, nonneg=False)
+    with pytest.raises(ValueError, match="16 bytes"):
+        scatter(feat[..., :16].contiguous(), coords)  # 8 bytes a variant
+    with pytest.raises(ValueError, match="16 bytes"):
+        scatter(feat[..., 4:36], coords)  # rows start 8 bytes into a slice
+    with pytest.raises(ValueError, match="16 bytes"):  # rows 136 bytes apart
+        scatter(torch.cat([feat, feat[..., :4]], -1)[..., :64], coords)
+    with pytest.raises(ValueError, match="even"):
+        scatter(feat, coords, size=(size[0], 63))
+    with pytest.raises(ValueError, match="layout"):
+        scatter(feat, coords, layout="phase")
+    _check_scatter_tta(torch.cat([feat, feat], -1)[..., 64:], coords, size,
+                       (0.5, 0.5), "bev", "variants")
+
+
 # ---- at StreamMOS_seg's production shapes ----------------------------------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lib", ["sorted_scatter", "scatter_grid",
-                                 "grid_gather_tta"])
+                                 "grid_gather_tta", "scatter_tta"])
 def test_ptxas_reports_registers(cuda, lib):
     """A build keeps ptxas's registers and spills beside its library."""
     build.load_library(lib)
@@ -732,6 +857,27 @@ def test_scatter_kernels_at_a_site_of_a_frame(cuda, frame_sites, site):
     rows = feat.reshape(-1, C).index_select(0, perm)
     assert torch.equal(kt.scatter_library(rows, ids_sorted, B * n, False)
                        .reshape(auto.shape), auto)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bt", [1, 4])
+def test_scatter_tta_kernel_at_the_sites_of_a_step(cuda, Bt, dtype):
+    """The folded TTA scatter at the five sites of a step of Bt streams, on
+    the inputs `kernel_times` times (at Bt = 1, bf16): the full grid in the
+    fused header's phase-outer layout, the four cascade grids each variant
+    in its own orientation; equal in value to the plain version."""
+    sites = kt.scatter_sites(get_config("StreamMOS_seg"), cuda, Bt, dtype)
+    assert [s["span"] for s in sites] == [
+        "smt.scatter." + n for n in ("bev_full", "rv0", "bev0", "rv1", "bev1")]
+    with torch.inference_mode():
+        for s in sites:
+            size, scale = s["args"][:2]
+            got = _check_scatter_tta(s["feat"], s["inds"], size, scale,
+                                     s["kind"], s["layout"])
+            outer = s["layout"] == "phase_outer"
+            assert got.shape[:2] == ((Bt * 3, 4) if outer else (4, Bt))
+            del got
 
 
 @pytest.mark.cuda
