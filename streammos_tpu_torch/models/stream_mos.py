@@ -40,7 +40,7 @@ from streammos_tpu_torch.ops.tta_fold import (V_TTA, grid_to_point_tta,
                                               voxel_max_pool_tta)
 from streammos_tpu_torch.ops.voxel_pool import voxel_max_pool
 from streammos_tpu_torch.parallel import gather_batch
-from streammos_tpu_torch.utils.profiling import constant, span
+from streammos_tpu_torch.utils.profiling import constant, count, span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -343,11 +343,14 @@ def streaming_loss(model: StreamMOSNet, windows: Dict[str, torch.Tensor],
     running statistics move only on the first run. The model's BN running
     statistics move once a window. Returns the mean loss over the windows.
     Each window runs in span ``smt.train.window``, its loss in
-    ``smt.train.loss``.
+    ``smt.train.loss``; on a card, the bytes that the loss allocates and
+    still holds after its span (what it keeps for the backward) count in
+    ``train.loss_bytes`` (two reads of the allocator's count, no sync).
     """
     key = "xyzi" if "xyzi" in windows else "points"
     S, B = windows[key].shape[:2]
     device = windows[key].device
+    card = device.type == "cuda"
     criterion = make_criterion(cfg.loss_mode, cfg.class_num)
     memory = torch.zeros(memory_shape(cfg, B), dtype=torch.float32,
                          device=device)
@@ -391,6 +394,10 @@ def streaming_loss(model: StreamMOSNet, windows: Dict[str, torch.Tensor],
             else:
                 out = one_window(*args)
             memory = out["memory"]
+            held = torch.cuda.memory_allocated(device) if card else 0
             with span("smt.train.loss"):
                 total = total + window_loss(i, batch, out)
+            if card:
+                count("train.loss_bytes",
+                      torch.cuda.memory_allocated(device) - held)
     return total / S

@@ -18,14 +18,24 @@ reductions global by hand:
 window before one backward, and DDP's reducer expects one forward a
 backward. Everything above is a no-op while no process group is active,
 so one process runs exactly the code it runs without this module.
+
+Each exchange is a span (`utils/profiling.span`): ``smt.dp.bn`` (the BN
+sums' all-reduce, forward and backward), ``smt.dp.gather`` (the losses'
+all-gather and its backward all-reduce), ``smt.dp.grads`` (the bucketed
+gradient all-reduce) and ``smt.dp.replicate`` (the set-up broadcast); and
+every collective counts one ``dp.collectives`` and its payload, the bytes
+this rank hands to it, in ``dp.bytes``.
 """
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from streammos_tpu_torch.utils.profiling import count, span
 
 BUCKET_BYTES = 32 << 20  # gradient all-reduce bucket
 
@@ -34,13 +44,16 @@ def initialize_distributed(coordinator: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
                            backend: Optional[str] = None,
-                           device="cuda") -> None:
+                           device="cuda",
+                           timeout: Optional[float] = None) -> None:
     """Join the process group at ``tcp://<coordinator>`` (host:port) as rank
     `process_id` of `num_processes`. Does nothing when `num_processes` is
     1 or less, as JAX's does. The backend defaults to ``nccl`` for a CUDA
     `device` and ``gloo`` for the CPU; ``gloo`` may be asked for on a CUDA
     device, so that two ranks can share one card (NCCL refuses two ranks on
-    one device)."""
+    one device). `timeout` (seconds; torch's default when None) bounds the
+    rendezvous and every collective: a rank left waiting on a dead peer
+    raises (gloo) or is torn down by NCCL's watchdog instead of hanging."""
     if num_processes is None or num_processes <= 1:
         return
     if coordinator is None or process_id is None:
@@ -48,8 +61,11 @@ def initialize_distributed(coordinator: Optional[str] = None,
                          "a coordinator address and a process id")
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    kwargs = ({} if timeout is None else
+              {"timeout": datetime.timedelta(seconds=timeout)})
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            **kwargs)
 
 
 def active() -> bool:
@@ -84,14 +100,24 @@ def replicate_state(state) -> None:
     for v in state.opt_state.values():
         if isinstance(v, dict):
             tensors += list(v.values())
-    for t in tensors:
-        dist.broadcast(t, src=0)
+    with span("smt.dp.replicate"):
+        for t in tensors:
+            dist.broadcast(t, src=0)
+            _issued(t)
 
 
-def _summed(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of `t` summed over the ranks."""
+def _issued(t: torch.Tensor) -> None:
+    """Count one collective and the bytes this rank hands to it."""
+    count("dp.collectives")
+    count("dp.bytes", t.numel() * t.element_size())
+
+
+def _summed(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A contiguous copy of `t` summed over the ranks, in span `name`."""
     t = t.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(t)
+    with span(name):
+        dist.all_reduce(t)
+    _issued(t)
     return t
 
 
@@ -105,14 +131,16 @@ class _GatherBatch(torch.autograd.Function):
     def forward(ctx, x):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
+        with span("smt.dp.gather"):
+            dist.all_gather(parts, x)
+        _issued(x)
         ctx.rows = x.shape[0]
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, grad):
         start = dist.get_rank() * ctx.rows
-        return _summed(grad)[start:start + ctx.rows]
+        return _summed(grad, "smt.dp.gather")[start:start + ctx.rows]
 
 
 def gather_batch(x: torch.Tensor) -> torch.Tensor:
@@ -125,15 +153,16 @@ def gather_batch(x: torch.Tensor) -> torch.Tensor:
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum over the ranks; the backward sums the cotangents over the ranks
-    too (every rank's output depends on every rank's input)."""
+    too (every rank's output depends on every rank's input). Span
+    ``smt.dp.bn``: the BN sums are its one caller."""
 
     @staticmethod
     def forward(ctx, x):
-        return _summed(x)
+        return _summed(x, "smt.dp.bn")
 
     @staticmethod
     def backward(ctx, grad):
-        return _summed(grad)
+        return _summed(grad, "smt.dp.bn")
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
@@ -153,7 +182,9 @@ def all_reduce_grads(grads: Dict[str, torch.Tensor]) -> None:
 
     def flush():
         flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
+        with span("smt.dp.grads"):
+            dist.all_reduce(flat)
+        _issued(flat)
         parts = flat.split([g.numel() for g in bucket])
         torch._foreach_copy_(bucket, [p.view_as(g)
                                       for p, g in zip(parts, bucket)])

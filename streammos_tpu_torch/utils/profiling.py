@@ -4,7 +4,12 @@ the trace that holds the spans.
 * :func:`span` — a named span (``smt.<bucket>[.<site>]``) at a call into a
   layer of the eval step, or a phase of the train step (``smt.train.step``
   around ``smt.train.window``, ``smt.train.loss``, ``smt.train.backward``
-  and ``smt.train.optimizer``): the profiler's own `record_function` while a
+  and ``smt.train.optimizer``), or a data-parallel exchange
+  (`parallel.py`: ``smt.dp.bn``, the BN sums' all-reduce forward and
+  backward; ``smt.dp.gather``, the losses' all-gather and its backward
+  all-reduce; ``smt.dp.grads``, the bucketed gradient all-reduce;
+  ``smt.dp.replicate``, the set-up broadcast; each only while a process
+  group is active): the profiler's own `record_function` while a
   `torch.profiler` session records, so the span is a ``user_annotation``
   event on the clock of the trace's device events; otherwise one shared
   no-op context, after a single check of the profiler's flag. While a
@@ -13,7 +18,10 @@ the trace that holds the spans.
 * :func:`count` / :func:`counters` — named counts, always on: the hand
   kernels' launches (``kernel.*``), eval steps (``smt.steps``), train
   steps (``train.steps``) and the bytes each holds for its backward on a
-  card (``train.saved_bytes``), the host-built tensors copied to the device
+  card (``train.saved_bytes``; of them, those its windows' losses hold,
+  ``train.loss_bytes``), the data-parallel collectives issued
+  (``dp.collectives``) and the bytes this rank hands to them
+  (``dp.bytes``), the host-built tensors copied to the device
   (``h2d.copies``), and the eval step's CUDA graphs (``graph.captures``,
   ``graph.replays``);
 * :func:`to_device` — `torch.as_tensor` of host data, counted as one
