@@ -30,6 +30,7 @@ SOURCES: Dict[str, str] = {
     "scatter_grid": "csrc/scatter_grid.cu",
     "grid_gather_tta": "csrc/grid_gather_tta.cu",
     "scatter_tta": "csrc/scatter_tta.cu",
+    "bn_act": "csrc/bn_act.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -18,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from streammos_tpu_torch import parallel
+from streammos_tpu_torch.ops.bn_act import activate, bn_act, memory_format
 from streammos_tpu_torch.ops.fused_header import fused_header_tta
 from streammos_tpu_torch.ops.tta_fold import V_TTA, orient_grid
 
@@ -28,9 +29,10 @@ class BN(nn.BatchNorm2d):
     """flax `nn.BatchNorm` (momentum 0.9, eps 1e-5) as `BN` of the JAX
     blocks runs it.
 
-    Eval: the per-channel affine, scale = weight * rsqrt(running_var + eps),
-    shift = bias - running_mean * scale, computed in float32 and applied in
-    the activation dtype.
+    Eval: the per-channel affine, scale = weight / sqrt(running_var + eps),
+    shift = bias - running_mean * scale, applied in float32 and rounded once
+    to the activation dtype, in one pass with what follows the BN (`act`):
+    `ops/bn_act.py:bn_act`, the hand kernel on a card.
 
     Train: batch statistics in float32 over every axis but the channel
     axis, the variance as E[x^2] - E[x]^2 clipped at 0 (biased), the
@@ -51,6 +53,7 @@ class BN(nn.BatchNorm2d):
         self.update_stats = True
 
     def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, shift) in float32, for the fused TTA header kernel."""
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         return scale, self.bias.float() - self.running_mean.float() * scale
 
@@ -90,12 +93,25 @@ class BN(nn.BatchNorm2d):
         return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(x)
+
+    def act(self, x: torch.Tensor, act: str = "none",
+            residual: Optional[torch.Tensor] = None,
+            gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """act(BN(x) * gate + residual), act "none", "relu" or "leaky_relu";
+        the gate per (sample, channel), eval only. Train: the batch-
+        statistics BN, then the residual add and the activation, each its
+        own op. Eval: one `bn_act` pass, which reads the running statistics
+        and the affine where they lie (a CUDA graph replay sees weights
+        written in place)."""
         if self.training:
-            return self._train_forward(x)
-        scale, shift = (a.to(x.dtype) for a in self.eval_affine())
-        if self.fold:
-            return torch.addcmul(shift.repeat(self.fold), x, scale.repeat(self.fold))
-        return torch.addcmul(shift[:, None, None], x, scale[:, None, None])
+            if gate is not None:
+                raise ValueError("the BN gate is an eval-only fusion")
+            y = self._train_forward(x)
+            return activate(y if residual is None else y + residual, act)
+        return bn_act(x, self.weight, self.bias, self.running_mean,
+                      self.running_var, self.eps, self.fold, act, residual,
+                      gate)
 
 
 class Dropout(nn.Module):
@@ -202,9 +218,15 @@ class DownSample2D(nn.Module):
         if x.ndim == 5:
             B, T, H, W, c = x.shape
             x = x.permute(0, 1, 4, 2, 3).reshape(B, T * c, H, W)
-        conv_b = self.conv_branch(x)
-        pool_b = maxpool3x3(self.pool_branch(x), self.stride)
-        return torch.relu(conv_b + pool_b)
+        if self.training:
+            return torch.relu(self.conv_branch(x)
+                              + maxpool3x3(self.pool_branch(x), self.stride))
+        conv, bn = self.conv_branch
+        conv_b = conv(x)
+        # the eval epilogue reads the pool branch in conv_b's layout
+        pool_b = maxpool3x3(self.pool_branch(x), self.stride).contiguous(
+            memory_format=memory_format(conv_b))
+        return bn.act(conv_b, "relu", residual=pool_b)
 
     def forward_tta_fused(self, g_phase: torch.Tensor, T: int) -> torch.Tensor:
         """(Bt*T, 4, Hh+2, Wh, V*C) phase-outer, canonical -> (V*Bt, Cout,
@@ -234,10 +256,15 @@ class ChannelAtt(nn.Module):
             Conv2d(channels // reduction, channels, 1),
             nn.Sigmoid())
 
+    def gate(self, mean: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The (N, C, 1, 1) scale from the float32 mean over H, W of the
+        attended tensor, in `dtype`."""
+        ca = mean.to(dtype)
+        return torch.sigmoid(self.cnet[3](torch.relu(self.cnet[1](ca))))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ca = x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
-        ca = torch.sigmoid(self.cnet[3](torch.relu(self.cnet[1](ca))))
-        return x * ca
+        return x * self.gate(x.float().mean(dim=(2, 3), keepdim=True),
+                             x.dtype)
 
 
 class BasicBlock(nn.Module):
@@ -252,10 +279,19 @@ class BasicBlock(nn.Module):
         self.channel_att = ChannelAtt(planes) if use_att else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.layer(x)
-        if self.channel_att is not None:
-            out = self.channel_att(out)
-        return torch.relu(out + x)
+        conv1, bn1, _, conv2, bn2 = self.layer
+        out = conv2(bn1.act(conv1(x), "relu"))
+        att = self.channel_att
+        if att is None:
+            return bn2.act(out, "relu", residual=x)
+        if self.training:
+            return torch.relu(att(bn2(out)) + x)
+        # eval: the gate from BN's mean, mean(x * s + b) = s * mean(x) + b
+        # (a BN pass over the (N, C) means), then BN, the gate, the residual
+        # and the ReLU in one pass
+        mean = out.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+        gate = att.gate(bn2(mean), out.dtype)
+        return bn2.act(out, "relu", residual=x, gate=gate)
 
 
 class SpatialAtt(nn.Module):
@@ -323,8 +359,10 @@ class UnbalanceBasicBlock(nn.Module):
             Conv2d(2 * planes, planes, 3, padding=1, bias=False), BN(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.cat([self.layer7x3(x), self.layer3x7(x)], dim=1)
-        return torch.relu(self.layer3x3(out) + x)
+        branches = [bn.act(conv(x), "relu")
+                    for conv, bn, _ in (self.layer7x3, self.layer3x7)]
+        conv, bn = self.layer3x3
+        return bn.act(conv(torch.cat(branches, dim=1)), "relu", residual=x)
 
 
 class BasicConv2d(nn.Module):
@@ -338,9 +376,7 @@ class BasicConv2d(nn.Module):
         self.bn = BN(out_planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # jax.nn.leaky_relu's form: slope 1 at 0 in the gradient
-        x = self.bn(self.conv(x))
-        return torch.where(x >= 0, x, 0.01 * x)
+        return self.bn.act(self.conv(x), "leaky_relu")
 
 
 class PointNet(nn.Module):
@@ -349,6 +385,7 @@ class PointNet(nn.Module):
     def __init__(self, cin: int, cout: int, pre_bn: bool = False,
                  post_act: bool = True, fold: int = 1):
         super().__init__()
+        self.post_act = "relu" if post_act else "none"
         layers = [BN(cin, fold)] if pre_bn else []
         layers += [PointConv(cin, cout, fold=fold), BN(cout, fold)]
         if post_act:
@@ -356,7 +393,11 @@ class PointNet(nn.Module):
         self.layer = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer(x)
+        layers = list(self.layer)
+        if isinstance(layers[0], BN):
+            x = layers.pop(0)(x)
+        conv, bn = layers[:2]
+        return bn.act(conv(x), self.post_act)
 
 
 class PointNetStacker(nn.Module):
@@ -395,10 +436,9 @@ class CatFusion(nn.Module):
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         dt = xs[0].dtype
         # dropout is elementwise: per source equals on the concat
-        x = self.merge_layer[0]([self.dropout(v.to(dt)) for v in xs])
-        for layer in self.merge_layer[1:]:
-            x = layer(x)
-        return x
+        conv1, bn1, _, conv2, bn2, _ = self.merge_layer
+        x = bn1.act(conv1([self.dropout(v.to(dt)) for v in xs]), "relu")
+        return bn2.act(conv2(x), "relu")
 
 
 class BranchAttFusion(nn.Module):

@@ -13,16 +13,19 @@ from a CUDA graph: the card's time without the host's cost of issuing
 it), `bound_ms` (the larger of the bytes the function needs, each read or
 written once, over 3.35 TB/s and its operations over the peak rate; which
 of the two in `bound_by`) and `mb`. The scatter kernels, the folded TTA
-scatter and the gather add a row a site (`sites`); the two unfolded
-scatters' top-level times are those of their largest site, the folded
-scatter's and the gather's are summed over the five sites of a frame.
+scatter, the gather and the eval BN epilogue add a row a site (`sites`);
+the two unfolded scatters' top-level times are those of their largest
+site, the folded scatter's and the gather's are summed over the five sites
+of a frame, the BN epilogue's over its 58 launches in a frame (Bt = 1) and
+in a step of 4 streams (Bt = 4).
 
 Inputs: the fused header's drawn from the seed at StreamMOS_seg's
 production shape (`header_inputs`); the scatters' (the folded one's too)
 coordinates those of a range-skewed frame of POINTS points x T at the
 five scatter sites, the features drawn from the seed (`scatter_sites`);
 the gather's the grids and coordinates the model hands over in an eager
-step (`gather_sites`). TF32
+step (`gather_sites`); the BN epilogue's the shapes, layouts and operands
+of its calls in an eager step (`bn_sites`), filled from the seed. TF32
 is off. The card tests (`tests/test_torch_cuda.py`) hold the kernels'
 results against their plain versions on the same inputs; this tool times
 them. It exits non-zero on a card whose peaks it does not know (the
@@ -403,6 +406,149 @@ def gather_entry(dev, cfg):
             "sites": rows}
 
 
+def bn_launches(model) -> int:
+    """`kernel.bn_act` launches of one eval step of `model` on a card: one a
+    BN, none for the two BNs the fused TTA header applies itself, and one
+    more a channel-attention block (its gate's BN over the (N, C) means)."""
+    from streammos_tpu_torch.nn.blocks import BN, BasicBlock
+
+    mods = list(model.modules())
+    header = 2 if model.tta_fold and model.cfg.fused_header else 0
+    return (sum(isinstance(m, BN) for m in mods) - header
+            + sum(isinstance(m, BasicBlock) and m.channel_att is not None
+                  for m in mods))
+
+
+def bn_sites(cfg, dev, Bt: int = 1):
+    """The eval BN epilogue's calls in one eager main-path step of Bt
+    streams of `cfg`'s model (weights from the seed, range-skewed frames of
+    POINTS points), each a dict: `site` (the BN's module name), `shape`,
+    `strides`, `dtype`, `fold`, `C`, `act`, `residual` (bool), `gate` (its
+    shape or None)."""
+    from streammos_tpu_torch import serve
+    from streammos_tpu_torch.nn import blocks
+    from streammos_tpu_torch.scans import skewed_scan_bank
+
+    model = serve.build_model(cfg, with_refine=True, device=dev, seed=SEED)
+    names = {m.weight.data_ptr(): n for n, m in model.named_modules()
+             if isinstance(m, blocks.BN)}
+    xyzi = torch.from_numpy(skewed_scan_bank(np.random.default_rng(SEED), Bt,
+                                             cfg.model.seq_num, POINTS)[:, 0])
+    sites = []
+    real = blocks.bn_act
+
+    def spy(x, weight, bias, mean, var, eps, fold=0, act="none",
+            residual=None, gate=None):
+        sites.append(dict(site=names[weight.data_ptr()], shape=list(x.shape),
+                          strides=list(x.stride()), dtype=x.dtype, fold=fold,
+                          C=weight.shape[0], act=act,
+                          residual=residual is not None,
+                          gate=None if gate is None else list(gate.shape)))
+        return real(x, weight, bias, mean, var, eps, fold, act, residual, gate)
+
+    blocks.bn_act = spy
+    try:
+        with torch.inference_mode():
+            serve.eval_step(model, xyzi.to(dev), serve.initial_memory(model),
+                            False)
+    finally:
+        blocks.bn_act = real
+    if len(sites) != bn_launches(model):
+        raise RuntimeError(f"{len(sites)} BN epilogues in a step, expected "
+                           f"{bn_launches(model)}")
+    return sites
+
+
+def bn_operands(site: dict, gen, dtype=None, layout=None):
+    """Random operands of a `bn_sites` call: x (and the residual) in the
+    site's strides, or NCHW / channels last (`layout` "nchw" / "nhwc"), of
+    the site's dtype or `dtype`; the gate in (0, 1); the BN's four float32
+    buffers. Returns (x, weight, bias, mean, var, eps, fold, act, residual,
+    gate)."""
+    dev = gen.device
+    dt = dtype or site["dtype"]
+    C, shape = site["C"], site["shape"]
+
+    def laid(t):
+        if layout == "nchw":
+            return t.contiguous()
+        if layout == "nhwc":
+            return t.contiguous(memory_format=torch.channels_last)
+        return torch.empty_strided(shape, site["strides"], dtype=dt,
+                                   device=dev).copy_(t)
+
+    x = laid(torch.randn(shape, generator=gen, device=dev).to(dt) * 2)
+    r = (laid(torch.randn(shape, generator=gen, device=dev).to(dt))
+         if site["residual"] else None)
+    g = (torch.rand(site["gate"], generator=gen, device=dev).to(dt)
+         if site["gate"] else None)
+    w = torch.rand(C, generator=gen, device=dev) + 0.5
+    b = torch.randn(C, generator=gen, device=dev) * 0.3
+    m = torch.randn(C, generator=gen, device=dev) * 0.3
+    v = torch.rand(C, generator=gen, device=dev) * 1.5 + 0.25
+    return x, w, b, m, v, 1e-5, site["fold"], site["act"], r, g
+
+
+def bn_library(x, weight, bias, mean, var, eps, fold, act, residual, gate):
+    """The library yardstick: the composition the port ran before the
+    kernel (BN's affine cast to x's dtype and applied by `addcmul`, then
+    the gate, the residual add and the activation, each one PyTorch op);
+    the CPU tests hold the plain version and the blocks to it too."""
+    from streammos_tpu_torch.ops.bn_act import activate
+
+    scale = weight * torch.rsqrt(var + eps)
+    shift = (bias - mean * scale).to(x.dtype)
+    scale = scale.to(x.dtype)
+    if fold:
+        y = torch.addcmul(shift.repeat(fold), x, scale.repeat(fold))
+    else:
+        y = torch.addcmul(shift[:, None, None], x, scale[:, None, None])
+    if gate is not None:
+        y = y * gate.reshape(x.shape[0], -1, 1, 1)
+    if residual is not None:
+        y = y + residual
+    return activate(y, act)
+
+
+def bn_entry(dev, cfg, Bt: int):
+    """The eval BN epilogue at its sites of one step of Bt streams: the
+    kernel, the plain version and the library yardstick on each site's
+    operands. The bound: x, the residual, the gate and y once each, and
+    the four buffers."""
+    from streammos_tpu_torch.ops.bn_act import bn_act, bn_act_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    with torch.inference_mode():
+        for site in bn_sites(cfg, dev, Bt):
+            args = bn_operands(site, gen)
+            x, r, g = args[0], args[8], args[9]
+            nbytes = 16 * site["C"] + sum(
+                t.numel() * t.element_size() for t in (x, x, r, g)
+                if t is not None)
+            rows.append(dict(
+                {k: site[k] for k in ("site", "shape", "strides", "fold",
+                                      "act", "residual", "gate")},
+                dtype=str(site["dtype"]).split(".")[1],
+                **timed(lambda: bn_act(*args),
+                        lambda: bn_act_reference(*args),
+                        lambda: bn_library(*args), plain_graph=True),
+                **bound(nbytes, 0.0)))
+            del args, x, r, g
+    total = {k: sum(r[k] for r in rows) for k in (
+        "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+        "library_device_ms", "bound_ms", "mb")}
+    return {"name": "bn_act" if Bt == 1 else f"bn_act_bt{Bt}",
+            "source": "streammos_tpu_torch/csrc/bn_act.cu", "replaces": None,
+            "dtype": "bfloat16", "Bt": Bt, "launches": len(rows), **total,
+            "bound_by": "bytes",
+            "library_call": "eval_affine, casts, addcmul, then the gate, the "
+                            "residual add and the activation (the port's "
+                            "composition before the kernel)",
+            "bound_share": total["bound_ms"] / total["device_ms"],
+            "sites": rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
@@ -434,7 +580,8 @@ def main() -> int:
     cfg = get_config("StreamMOS_seg")
     ok = True
     for entry in (*header_entries(dev, cfg), *scatter_entries(dev, cfg),
-                  scatter_tta_entry(dev, cfg), gather_entry(dev, cfg)):
+                  scatter_tta_entry(dev, cfg), gather_entry(dev, cfg),
+                  bn_entry(dev, cfg, 1), bn_entry(dev, cfg, 4)):
         print(json.dumps(entry), flush=True)
         if entry["name"] == "fused_header_tta_float32" and not (
                 entry["ms"] < entry["plain_ms"]):

@@ -34,6 +34,9 @@ POINTS = 160_000
 WARMUP_FRAMES, FRAMES = 2, 8  # the main path's frames, the first fresh
 GATHER_SITES = 5  # folded TTA gathers a StreamMOS_seg frame
 SCATTER_SITES = 5  # folded TTA scatters a StreamMOS_seg frame
+# eval BN epilogues a StreamMOS_seg frame: 53 BNs (the fused header applies
+# the other two) and the BNs of the 5 channel-attention gates' means
+BN_EPILOGUES = 58
 F32_PATH_TOL = 1e-5  # about 4x what the two float32 headers differ by
 TRAIN_POINTS, TRAIN_WINDOWS, TRAIN_STEPS = 130_000, 3, 7  # bs1, T = 3
 DATA_FRAMES = {"08": 12, "00": 8}  # the synthetic tree: sequence -> frames
@@ -99,8 +102,8 @@ def test_main_path_at_160k_points(cuda, dtype):
     seed; range-skewed frames of 160k points x T = 3, the memory fresh on
     the first frame and carried after): scores finite and summing to 1,
     the header kernel of the compute dtype once a frame, the gather kernel
-    and the folded scatter kernel at the five sites of a frame each, no
-    other scatter kernel. In float32 the scores are those of the
+    and the folded scatter kernel at the five sites of a frame each, the
+    eval BN epilogue 58 times a frame, no other scatter kernel. In float32 the scores are those of the
     frame-split header in plain PyTorch within 1e-5."""
     cfg = get_config("StreamMOS_seg")
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
@@ -118,7 +121,8 @@ def test_main_path_at_160k_points(cuda, dtype):
     assert _launched(before) == {f"kernel.fused_header.{header}": FRAMES,
                                  "kernel.grid_gather_tta":
                                  GATHER_SITES * FRAMES,
-                                 "kernel.scatter_tta": SCATTER_SITES * FRAMES}
+                                 "kernel.scatter_tta": SCATTER_SITES * FRAMES,
+                                 "kernel.bn_act": BN_EPILOGUES * FRAMES}
     assert len(outs) == FRAMES
     for pair in outs:
         for s in pair:
@@ -309,8 +313,8 @@ def test_val_cli(cuda, kitti, val_run):
     head's {0, 1, 2}), one record line with a finite moving_iou, one step
     a frame; the header launches once a frame and once more for the eager
     warm-up before the one capture of the carried step's graphs, the folded
-    gather and the folded scatter five times as often, the other scatter
-    kernels never."""
+    gather and the folded scatter five times as often, the eval BN epilogue
+    58 times as often, the other scatter kernels never."""
     frames = DATA_FRAMES["08"]
     exp = kitti / "experiments" / "StreamMOS_seg" / "smoke"
     for sub, allowed in (("val_results", {0, 9, 251}),
@@ -332,7 +336,9 @@ def test_val_cli(cuda, kitti, val_run):
                                    "kernel.grid_gather_tta":
                                    GATHER_SITES * (frames + 1),
                                    "kernel.scatter_tta":
-                                   SCATTER_SITES * (frames + 1)}
+                                   SCATTER_SITES * (frames + 1),
+                                   "kernel.bn_act":
+                                   BN_EPILOGUES * (frames + 1)}
 
 
 @pytest.mark.cuda

@@ -25,6 +25,12 @@ float32 on the same grid (the kernel sums in float32 and rounds once), and
 within 2**-5 of the sum of the kept taps' magnitudes of the plain bfloat16
 version, which rounds its weights (each off by up to 2**-8 absolute: f
 and 1 - f rounded), its products and its sums.
+The eval BN epilogue kernel: equal in value to its plain version in
+either dtype (the same float32 ops, each rounded once, in the same order,
+then one rounding to the output dtype), and in bfloat16 within one
+rounding to bfloat16 (rtol 2**-8) of the plain version run in float32 on
+the same operands; at every site of a StreamMOS_seg step, Bt = 1 and 4,
+in both dtypes and NCHW and channels-last.
 """
 import importlib.util
 import os
@@ -35,6 +41,7 @@ import torch
 
 from streammos_tpu_torch import build
 from streammos_tpu_torch.config import get_config
+from streammos_tpu_torch.ops import bn_act as t_bn
 from streammos_tpu_torch.ops import fused_header as t_fh
 from streammos_tpu_torch.ops import pallas_scatter as t_sorted
 from streammos_tpu_torch.ops import pallas_scatter_vmem as t_vmem
@@ -467,7 +474,8 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
     (StreamMOS_tiny, float32, random weights from a seed) on the card: one
     fused-header launch a frame and one for the eager warm-up before the
     carried step's CUDA graphs are captured, and so five of the folded
-    gather and five of the folded scatter, no other scatter kernel, one
+    gather and five of the folded scatter and `bn_launches` of the eval BN
+    epilogue, no other scatter kernel, one
     `.label` a frame; the metric within 1e-3 of the same run on the CPU, and at least
     99.5% of the label-file points equal to it (float32 sums in another
     order flip near-ties)."""
@@ -497,9 +505,11 @@ def test_dataset_stream_eval_on_the_card(cuda, tmp_path):
         if dev != "cpu":
             assert len(ds) == 8
             # a frame each, and the warm-up before the one capture
-            assert _launched(before) == {"kernel.fused_header.f32": 8 + 1,
-                                         "kernel.grid_gather_tta": 5 * (8 + 1),
-                                         "kernel.scatter_tta": 5 * (8 + 1)}
+            assert _launched(before) == {
+                "kernel.fused_header.f32": 8 + 1,
+                "kernel.grid_gather_tta": 5 * (8 + 1),
+                "kernel.scatter_tta": 5 * (8 + 1),
+                "kernel.bn_act": kt.bn_launches(model) * (8 + 1)}
         labels[str(dev)] = np.concatenate([
             np.fromfile(root / s / "predictions" / f"{i:06d}.label",
                         dtype=np.uint32)
@@ -928,3 +938,163 @@ def test_grid_gather_kernel_at_the_sites_of_a_frame(cuda):
             got32 = t_tta.grid_to_point_tta(g.float(), coords, scale, kind)
             assert float((got32 - want).abs().max()) <= 1e-6 * (
                 1 + float(want.abs().max())), name
+
+
+# ---- the eval BN epilogue ----------------------------------------------------
+
+def _check_bn_act(args, launches=1):
+    """The kernel against its plain version on the same operands."""
+    x, w, b, m, v, eps, fold, act, r, g = args
+    before = profiling.counters()
+    got = t_bn.bn_act(*args)
+    assert _launched(before) == {"kernel.bn_act": launches}
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.stride() == x.stride()
+    assert torch.equal(got, t_bn.bn_act_reference(*args))
+    if x.dtype == torch.bfloat16:
+        f32 = lambda t: None if t is None else t.float()
+        want = t_bn.bn_act_reference(f32(x), w, b, m, v, eps, fold, act,
+                                     f32(r), f32(g))
+        torch.testing.assert_close(got.float(), want, rtol=2 ** -8,
+                                   atol=1e-30)
+
+
+@pytest.fixture(scope="module")
+def bn_sites():
+    """`kernel_times.bn_sites` of StreamMOS_seg by Bt, found once."""
+    found = {}
+
+    def sites(dev, Bt):
+        if Bt not in found:
+            found[Bt] = kt.bn_sites(get_config("StreamMOS_seg"), dev, Bt)
+        return found[Bt]
+    return sites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Bt", [1, 4])
+def test_bn_act_kernel_at_the_sites_of_a_step(cuda, bn_sites, Bt, dtype):
+    """Every eval BN epilogue of a StreamMOS_seg step of Bt streams (58:
+    53 BNs and the 5 channel-attention gates' BNs over their means), at
+    its shape, act, residual and gate, in `dtype` (the gates' mean BNs stay
+    float32 in a bfloat16 step), the encoder's in NCHW and channels last,
+    on operands from the seed."""
+    sites = bn_sites(cuda, Bt)
+    assert len(sites) == 58
+    assert sum(s["gate"] is not None for s in sites) == 5
+    gen = torch.Generator(device=cuda).manual_seed(kt.SEED + Bt)
+    with torch.inference_mode():
+        for site in sites:
+            dt = torch.float32 if dtype == "float32" else site["dtype"]
+            for layout in (("nchw",) if site["fold"] else ("nchw", "nhwc")):
+                _check_bn_act(kt.bn_operands(site, gen, dt, layout))
+
+
+def _bn_site(shape, C, fold, act="relu", residual=True, gate=False):
+    return dict(shape=list(shape), strides=None, dtype=torch.bfloat16,
+                fold=fold, C=C, act=act, residual=residual,
+                gate=[shape[0], C, 1, 1] if gate else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", [
+    "ragged_point", "leaky_nchw", "misaligned", "gate_nchw", "gate_nhwc",
+    "one_by_one", "wide"])
+def test_bn_act_kernel_edge_cases(cuda, case, dtype):
+    """Rows of 28 (C = 7, fold 4) and a total no multiple of a vector,
+    pointers off 16-byte alignment (one element a thread), gates in both
+    layouts, 1 x 1 maps, and 4096 channels."""
+    layout = "nhwc" if case == "gate_nhwc" else "nchw"
+    site = {"ragged_point": _bn_site((3, 5, 28), 7, 4),
+            "leaky_nchw": _bn_site((2, 6, 5, 7), 6, 0, "leaky_relu", False),
+            "misaligned": _bn_site((2, 6, 5, 7), 6, 0),
+            "gate_nchw": _bn_site((3, 12, 7, 9), 12, 0, gate=True),
+            "gate_nhwc": _bn_site((3, 12, 7, 9), 12, 0, gate=True),
+            "one_by_one": _bn_site((5, 16, 1, 1), 16, 0, "none", gate=True),
+            "wide": _bn_site((2, 4096, 3, 5), 4096, 0)}[case]
+    gen = torch.Generator(device=cuda).manual_seed(kt.SEED)
+    args = list(kt.bn_operands(site, gen, dtype, layout))
+    if case == "misaligned":
+        for i in (0, 8):
+            t = args[i]
+            off = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+            args[i] = off[1:].view(t.shape).copy_(t)
+            assert args[i].data_ptr() % 16
+    with torch.inference_mode():
+        _check_bn_act(tuple(args))
+
+
+@pytest.mark.cuda
+def test_bn_act_kernel_cuts_large_tensors_into_launches(cuda):
+    """3 samples of 2^29 bf16 elements with a gate and a residual: launches
+    of whole samples, at most 2^30 elements each (two), each sample equal
+    to the plain version's."""
+    site = _bn_site((3, 64, 2048, 4096), 64, 0, gate=True)
+    gen = torch.Generator(device=cuda).manual_seed(kt.SEED)
+    x, w, b, m, v, eps, fold, act, r, g = kt.bn_operands(site, gen,
+                                                         layout="nchw")
+    with torch.inference_mode():
+        before = profiling.counters()
+        got = t_bn.bn_act(x, w, b, m, v, eps, fold, act, r, g)
+        assert _launched(before) == {"kernel.bn_act": 2}
+        for n in range(3):
+            one = slice(n, n + 1)
+            assert torch.equal(got[one], t_bn.bn_act_reference(
+                x[one], w, b, m, v, eps, fold, act, r[one], g[one])), n
+
+
+@pytest.mark.cuda
+def test_bn_act_kernel_rejects_what_it_cannot_take(cuda):
+    """bfloat16 buffers, more than 4096 channels, an input recording a
+    gradient (x, or BN's weight outside inference mode): raised, nothing
+    launched."""
+    from streammos_tpu_torch.nn.blocks import BN
+
+    x = torch.randn(2, 8, 4, 4, device=cuda)
+    bn = BN(8).to(cuda).eval()
+    before = profiling.counters()
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="float32"):
+            t_bn.bn_act(x, bn.weight.bfloat16(), bn.bias, bn.running_mean,
+                        bn.running_var, bn.eps)
+        wide = BN(4100).to(cuda).eval()
+        with pytest.raises(ValueError, match="4096"):
+            wide(torch.randn(1, 4100, 2, 2, device=cuda))
+    for t in (x.clone().requires_grad_(True), x):
+        with pytest.raises(RuntimeError, match="no backward"):
+            bn.act(t, "relu")
+    assert _launched(before) == {}
+
+
+@pytest.mark.cuda
+def test_bn_act_graph_replay_reads_weights_written_in_place(cuda):
+    """A CUDA graph of the epilogue, replayed after `running_var`,
+    `running_mean` and `weight` are written in place (as `load_state_dict`
+    writes them), applies the new values."""
+    from streammos_tpu_torch.nn.blocks import BN
+
+    bn = BN(16).to(cuda).eval()
+    x = torch.randn(2, 16, 8, 8, device=cuda).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            bn.act(x, "relu")  # the build, outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = bn.act(x, "relu")
+        graph.replay()
+        first = y.clone()
+    with torch.no_grad():
+        bn.running_var.mul_(3.0)
+        bn.running_mean.add_(0.25)
+        bn.weight.add_(0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = t_bn.bn_act_reference(x, bn.weight, bn.bias, bn.running_mean,
+                                 bn.running_var, bn.eps, 0, "relu")
+    assert torch.equal(y, want) and not torch.equal(y, first)

@@ -30,6 +30,7 @@ import torch
 from streammos_tpu_torch import serve
 from streammos_tpu_torch.config import get_config
 from streammos_tpu_torch.scans import skewed_scan_bank
+from streammos_tpu_torch.tools.kernel_times import bn_launches
 from streammos_tpu_torch.utils import graphs, profiling
 
 
@@ -261,6 +262,7 @@ def test_kernel_counts_under_replay(cuda, dtype):
         before = profiling.counters()
         _, _, memory = step(model, xyzi[1], memory, True)
         assert _counted(before, name) == 1
+        assert _counted(before, "kernel.bn_act") == bn_launches(model)
     assert _counted(before, "graph.replays") == 0
 
 
